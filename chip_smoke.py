@@ -3,29 +3,53 @@
 
     python3 chip_smoke.py
 
-Drives the port's forward render path (project → bin → kernel A →
-post-process) through the entry points a user calls, at the repo's
-benchmark size: the 1M-splat SH-degree-3 `make_scene(1_000_000)` rendered
-at 1920x1080 from the bench camera (eye (0, 0, -8) looking at the origin).
-Phases, each printing one line; any failure raises and exits non-zero:
+Drives the port's render path (project → bin → kernel A → post-process)
+and its training path (render → kernel B → fold → L1 + D-SSIM → Adam →
+densify) through the entry points a user calls, at the repo's benchmark
+size: the 1M-splat SH-degree-3 `make_scene(1_000_000)` at 1920x1080 from
+the bench camera (eye (0, 0, -8) looking at the origin). Phases, each
+printing one line; any failure raises and exits non-zero:
 
   0 device   nvidia-smi name and power limit; a CUDA device is required
-  1 build    nvcc builds csrc/raster_fwd.cu at first use
+  1 build    nvcc builds csrc/raster_fwd.cu and csrc/raster_bwd.cu, one
+             process each, started together
   2 kernel   kernel A vs its plain PyTorch twin on the same bins: an
              opaque early-exit scene, a 72x40 ragged frame, and the full
              1080p frame (timed, CUDA events, median of 7 after warm-up)
-  3 render   `render` for a few frames: one kernel launch per frame, a
+  3 bwd      kernel B vs its plain twin on the same three scenes, after
+             the fold (the gradient-parity gate below); B, its twin and
+             the fold timed at 1080p
+  4 render   `render` for a few frames: one kernel A launch per frame, a
              finite non-black image, pair and shrink counts against the
              JAX package's CPU figures; per-stage medians
-  4 serve    `ViewerApp` at 1280x720 answers init/rotate/zoom/pan/tick
+  5 step     forward + backward through `render` at 1080p: A and B once
+             per step, finite parameter gradients; median step time
+  6 serve    `ViewerApp` at 1280x720 answers init/rotate/zoom/pan/tick
              with RGBA frames that encode to PNG
-  5 cli      `python -m gaussian_splatting_web_tpu_torch.cli render
-             --device cuda` on a 100k-splat PLY writes a PNG
+  7 cli      `cli render --device cuda` on a 100k-splat PLY writes a PNG
+  8 train    `train()` from make_scene(1M, seed 0) on four 1920x1080 views
+             that `render` made of make_scene(1M, seed 1): 30 iterations,
+             one forced densify round, SH bands unlocked on the way; A and
+             B once per iteration, finite losses whose last five average
+             below the first five, a changed alive count; ms/iteration
+  9 cli      `cli train --device cuda` on a small synthetic capture (PNGs
+             and cameras.json written here) writes a PLY `read_ply` loads
 
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
-residual log-transmittance agrees to 1e-4. TF32 is switched off for
-matmuls and cuDNN so the plain twin computes in full f32.
+residual log-transmittance agrees to 1e-4. Gradient rule
+(bench_lib.grad_parity_ok): over the folded [N, 9] gradients, p99 of
+|kernel − twin| / max|twin| per column ≤ 1e-3, and at most 1e-5 of the
+elements plus 2 off by more than 1%. TF32 is switched off for matmuls and
+cuDNN so the plain twins and SSIM compute in full f32.
+
+Each kernel's bound is the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its operations on this run's data
+over the card's peak: FP32 operations over 67 TFLOP/s, and exp/log1p/
+reciprocal over the special-function units (16 per SM per clock, 132 SMs,
+1.98 GHz). Pair-pixel steps are counted from this run's bins: kernel A
+walks each pixel up to its early exit, kernel B up to its last
+contributing pair.
 
 Prints the card line, a JSON line of kernel results, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -34,34 +58,53 @@ Prints the card line, a JSON line of kernel results, and last
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
 
-from gaussian_splatting_web_tpu_torch.bench_lib import make_scene
+from gaussian_splatting_web_tpu_torch.bench_lib import (
+    grad_parity,
+    grad_parity_ok,
+    make_scene,
+)
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.core.camera import default_camera
-from gaussian_splatting_web_tpu_torch.io.ply import write_ply
+from gaussian_splatting_web_tpu_torch.io.dataset import View
+from gaussian_splatting_web_tpu_torch.io.ply import read_ply, write_ply
+from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
+    PARAMS,
+    GaussianModel,
+)
+from gaussian_splatting_web_tpu_torch.ops import rasterize
 from gaussian_splatting_web_tpu_torch.ops.composite import post_process
 from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
 from gaussian_splatting_web_tpu_torch.ops.projection import project_gaussians
 from gaussian_splatting_web_tpu_torch.ops.rasterize import (
+    composite_backward_plain,
     composite_image_plain,
+    fold_pair_grads,
     pack_splat_fields,
     rasterize_tiles,
     render,
 )
 from gaussian_splatting_web_tpu_torch.ops.sort import bin_splats
-from gaussian_splatting_web_tpu_torch.utils.image import encode_png
+from gaussian_splatting_web_tpu_torch.train.train_loop import (
+    TrainLoopConfig,
+    train,
+)
+from gaussian_splatting_web_tpu_torch.utils.image import (
+    encode_png,
+    read_png,
+    write_png,
+)
 from gaussian_splatting_web_tpu_torch.viewer.server import ViewerApp
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -71,8 +114,26 @@ N_SCENE = 1_000_000
 # camera on the CPU: live (tile, splat) pairs and centre-shrunk splats
 CPU_PAIRS, CPU_OVERFLOW = 2_150_328, 13
 ATOL, MAX_BAD_FRAC, LOG_T_TOL = 2e-4, 2e-4, 1e-4
-KERNEL_SOURCE = "gaussian_splatting_web_tpu_torch/csrc/raster_fwd.cu"
-KERNEL_REPLACES = "gaussian_splatting_web_tpu/ops/pallas/raster.py:219"
+GRAD_EXTRA = 2            # knife-edge outliers allowed on top of 1e-5 of n
+KERNELS = {
+    "raster_fwd": ("gaussian_splatting_web_tpu_torch/csrc/raster_fwd.cu",
+                   "gaussian_splatting_web_tpu/ops/pallas/raster.py:219"),
+    "raster_bwd": ("gaussian_splatting_web_tpu_torch/csrc/raster_bwd.cu",
+                   "gaussian_splatting_web_tpu/ops/pallas/raster_bwd.py:64"),
+}
+# peaks of one H100 SXM (NVIDIA data sheet; SFU: 16 results per SM per
+# clock at the 1.98 GHz boost clock)
+HBM_BYTES_S, FP32_FLOPS_S, SFU_OPS_S = 3.35e12, 67e12, 132 * 16 * 1.98e9
+# operations per pair-pixel step, read off the kernels' inner loops: every
+# step evaluates power (5 mul + 5 add) and compares it; a step past the
+# cutoff adds, in A, fmin, the log-T add and compare, w, four colour/alpha
+# accumulations (12 FP32) and exp, log1p, exp (3 SFU); in B, fmin, the
+# log-T subtract, w, r (3 fma), dα, the suffix, dpow, nine moment products
+# and their nine reduction adds (35 FP32) and exp, log1p, exp and the
+# reciprocal of 1 − α (4 SFU)
+STEP_FP32 = 11
+PASS_FP32 = {"raster_fwd": 12, "raster_bwd": 35}
+PASS_SFU = {"raster_fwd": 3, "raster_bwd": 4}
 
 
 class SmokeFailure(RuntimeError):
@@ -101,7 +162,7 @@ def median_ms(fn, runs, warmup=2):
 
 
 def compare(got, want, what):
-    """Hold kernel output against the plain twin by the image rule."""
+    """Hold kernel A's output against the plain twin by the image rule."""
     img = torch.cat([got.rgb, got.alpha[..., None]], -1)
     ref = torch.cat([want.rgb, want.alpha[..., None]], -1)
     check(bool(torch.isfinite(img).all()), f"{what}: non-finite kernel output")
@@ -131,6 +192,66 @@ def binned(cloud, camera, w, h, cfg):
     return pack_splat_fields(splats), bins
 
 
+def small_scenes(dev):
+    """An opaque stack (every central pixel exits early) and a ragged
+    72x40 frame: (name, cloud, width, height, eye z)."""
+    rng = np.random.default_rng(7)
+    n = 40
+    opaque = make_scene(n, seed=5, sh_degree=0, device=dev)
+    opaque.xyz = torch.from_numpy(np.concatenate(
+        [rng.normal(scale=0.05, size=(n, 2)), rng.uniform(-2, 2, (n, 1))],
+        axis=1).astype(np.float32)).to(dev)
+    opaque.opacity_logit = torch.full((n,), 6.0, device=dev)
+    opaque.log_scale = torch.full((n, 3), -0.7, device=dev)
+    small = make_scene(2000, seed=3, sh_degree=3, device=dev)
+    return [("opaque 48x48", opaque, 48, 48, -6.0),
+            ("ragged 72x40", small, 72, 40, -8.0)]
+
+
+def work(fields, bins, comp, w, h, cfg):
+    """Pair-pixel steps of this frame: (A steps, A steps past the cutoff,
+    B steps, B steps past the cutoff). A walks each pixel up to and
+    including its early-exit pair (the whole segment if it never
+    saturates); B walks each pixel up to its last contributing pair."""
+    gx, gy = cfg.grid_size(w, h)
+    ts = cfg.tile_size
+    dev = fields.device
+    tile_ids = torch.arange(gx * gy, device=dev)
+    inside = rasterize.tile_major(torch.ones((h, w, 1), device=dev), gx, gy,
+                                  ts)[..., 0] > 0                 # [T, P]
+    last = rasterize.tile_major(comp.last_idx[..., None], gx, gy, ts,
+                                fill=-1)[..., 0]
+    log_eps = math.log(cfg.transmittance_eps)
+    totals = torch.zeros(4, dtype=torch.float64, device=dev)
+    starts, counts, spans = rasterize._chunks(bins, tile_ids, cfg)
+    with torch.no_grad():
+        for sl, k_len in spans:
+            seg = rasterize._segments(fields, bins, tile_ids, starts, counts,
+                                      sl, k_len, gx, cfg)
+            live = seg.live[..., None] & inside[sl][:, None, :]
+            passed = seg.alpha > 0
+            incl = torch.cumsum(torch.log1p(-seg.alpha), dim=1)
+            # steps up to the first violator, inclusive
+            walked = torch.cumsum((incl < log_eps).to(torch.int32), 1)
+            walked = (walked - (incl < log_eps).to(torch.int32)) == 0
+            k = torch.arange(k_len, device=dev)
+            to_last = k[None, :, None] <= last[sl][:, None, :]
+            a = live & walked
+            b = live & to_last
+            totals += torch.stack([a.sum(), (a & passed).sum(), b.sum(),
+                                   (b & passed).sum()]).double()
+    return [int(v) for v in totals.tolist()]
+
+
+def bound(name, steps, passed, nbytes):
+    """(bound_ms, bound_by) from bytes and this run's operations."""
+    flops = steps * STEP_FP32 + passed * PASS_FP32[name]
+    ops_s = max(flops / FP32_FLOPS_S, passed * PASS_SFU[name] / SFU_OPS_S)
+    bytes_s = nbytes / HBM_BYTES_S
+    return max(ops_s, bytes_s) * 1e3, ("bytes" if bytes_s >= ops_s
+                                       else "operations")
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke "
@@ -148,32 +269,23 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    build.load("raster_fwd")
+    build.load_all(KERNELS)
     dt = time.perf_counter() - t0
-    log = build.build_logs.get("raster_fwd")
-    ptxas = " ".join(ln.split("ptxas info    :")[-1].strip()
-                     for ln in (log or "").splitlines()
-                     if "registers" in ln)
-    how = "built" if log is not None else "loaded (cached build)"
-    print(f"[1 build] raster_fwd.cu {how} in {dt:.2f} s; ptxas: "
-          f"{ptxas or 'n/a'}")
+    parts = []
+    for name in KERNELS:
+        log = build.build_logs.get(name)
+        ptxas = " ".join(ln.split("ptxas info    :")[-1].strip()
+                         for ln in (log or "").splitlines()
+                         if "registers" in ln)
+        how = "built" if log is not None else "loaded (cached build)"
+        parts.append(f"{name}.cu {how}; ptxas: {ptxas or 'n/a'}")
+    print(f"[1 build] {dt:.2f} s, one nvcc per source in parallel: "
+          + "; ".join(parts))
 
 
 def phase_kernel(dev, cloud, cfg):
     findings = {}
-    # small scenes first: opaque stack (early exit) and a ragged frame
-    rng = np.random.default_rng(7)
-    n = 40
-    opaque = make_scene(n, seed=5, sh_degree=0, device=dev)
-    opaque.xyz = torch.from_numpy(np.concatenate(
-        [rng.normal(scale=0.05, size=(n, 2)), rng.uniform(-2, 2, (n, 1))],
-        axis=1).astype(np.float32)).to(dev)
-    opaque.opacity_logit = torch.full((n,), 6.0, device=dev)
-    opaque.log_scale = torch.full((n, 3), -0.7, device=dev)
-    small = make_scene(2000, seed=3, sh_degree=3, device=dev)
-    cases = [("opaque 48x48", opaque, 48, 48, -6.0),
-             ("ragged 72x40", small, 72, 40, -8.0)]
-    for what, scene, w, h, z in cases:
+    for what, scene, w, h, z in small_scenes(dev):
         camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
         fields, bins = binned(scene, camera, w, h, cfg)
         got = raster_cuda.composite_image(fields, bins, w, h, cfg)
@@ -193,47 +305,117 @@ def phase_kernel(dev, cloud, cfg):
     plain_ms = median_ms(
         lambda: composite_image_plain(fields, bins, W, H, cfg), 7, warmup=1)
     findings["1080p"] = full
+    steps = work(fields, bins, got, W, H, cfg)
+    t = cfg.num_tiles(W, H)
+    nbytes = (fields.numel() * 4 + bins.sorted_gidx.numel() * 4 + t * 8
+              + H * W * 6 * 4)
+    bound_ms, bound_by = bound("raster_fwd", steps[0], steps[1], nbytes)
     print(f"[2 kernel] kernel A vs plain twin: "
           + "; ".join(f"{k}: max_abs_err {v['max_abs_err']:.3e}, "
                       f">{ATOL} on {v['bad_frac']:.2e}, "
                       f"log-T err {v['log_t_err']:.2e}, "
                       f"last-idx diff {v['last_idx_frac']:.2e}"
                       for k, v in findings.items())
-          + f"; 1080p kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          + f"; 1080p kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"pair-pixel steps {steps[0]} ({steps[1]} past the cutoff), "
+          f"{nbytes} bytes: bound {bound_ms:.4f} ms by {bound_by}")
     return {"max_abs_err": full["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, (fields, bins, got,
+                                                        steps)
+
+
+def backward_vs_plain(fields, bins, fwd, w, h, cfg, what):
+    gen = torch.Generator(device=fields.device).manual_seed(0)
+    d_rgb = torch.randn((h, w, 3), generator=gen, device=fields.device)
+    d_alpha = torch.randn((h, w), generator=gen, device=fields.device)
+    got = raster_cuda.composite_backward(fields, bins, w, h, cfg, fwd,
+                                         d_rgb, d_alpha)
+    want = composite_backward_plain(fields, bins, w, h, cfg, fwd, d_rgb,
+                                    d_alpha)
+    n = fields.shape[0]
+    g_got = fold_pair_grads(got, bins, n)
+    g_want = fold_pair_grads(want, bins, n)
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite B output")
+    check(g_want.abs().max().item() > 0, f"{what}: zero gradients")
+    stats = grad_parity(g_got.T, g_want.T)
+    stats["max_abs_err"] = (g_got - g_want).abs().max().item()
+    check(grad_parity_ok(stats, GRAD_EXTRA),
+          f"{what}: kernel B vs twin outside the gradient rule: {stats}")
+    return stats, (d_rgb, d_alpha, got)
+
+
+def phase_backward(dev, cfg, full):
+    findings = {}
+    for what, scene, w, h, z in small_scenes(dev):
+        camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
+        fields, bins = binned(scene, camera, w, h, cfg)
+        fwd = raster_cuda.composite_image(fields, bins, w, h, cfg)
+        findings[what], _ = backward_vs_plain(fields, bins, fwd, w, h, cfg,
+                                              what)
+    fields, bins, fwd, steps = full
+    stats, (d_rgb, d_alpha, dpairs) = backward_vs_plain(
+        fields, bins, fwd, W, H, cfg, "1080p")
+    findings["1080p"] = stats
+    ms = median_ms(lambda: raster_cuda.composite_backward(
+        fields, bins, W, H, cfg, fwd, d_rgb, d_alpha), 7)
+    plain_ms = median_ms(lambda: composite_backward_plain(
+        fields, bins, W, H, cfg, fwd, d_rgb, d_alpha), 7, warmup=1)
+    n = fields.shape[0]
+    fold_ms = median_ms(lambda: fold_pair_grads(dpairs, bins, n), 7)
+    again = raster_cuda.composite_backward(fields, bins, W, H, cfg, fwd,
+                                           d_rgb, d_alpha)
+    check(torch.equal(again, dpairs), "kernel B is not deterministic")
+    t = cfg.num_tiles(W, H)
+    nbytes = (fields.numel() * 4 + bins.sorted_gidx.numel() * 4 + t * 8
+              + H * W * 6 * 4 + dpairs.numel() * 4)
+    bound_ms, bound_by = bound("raster_bwd", steps[2], steps[3], nbytes)
+    print("[3 bwd] kernel B vs plain twin after the fold: "
+          + "; ".join(f"{k}: p99 {v['p99']:.2e}, max {v['max']:.2e}, "
+                      f">1% {v['nbig']}/{v['n']}, "
+                      f"max_abs_err {v['max_abs_err']:.3e}"
+                      for k, v in findings.items())
+          + f"; 1080p kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"fold {fold_ms:.3f} ms, bitwise repeatable; pair-pixel steps "
+          f"{steps[2]} ({steps[3]} contributing), {nbytes} bytes: bound "
+          f"{bound_ms:.4f} ms by {bound_by}")
+    return {"max_abs_err": findings["1080p"]["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "fold_ms": fold_ms}
 
 
 def phase_render(dev, cloud, cfg, frames=5):
     camera = bench_camera(W, H, dev)
     stages = {"projection": [], "binning": [], "composite": [], "frame": []}
-    for _ in range(3):           # stage split: host clock + synchronize
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        splats = project_gaussians(cloud, camera, W, H, cfg)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        bins = bin_splats(splats, W, H, cfg)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        rasterize_tiles(splats, bins, W, H, cfg)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        stages["projection"].append((t1 - t0) * 1e3)
-        stages["binning"].append((t2 - t1) * 1e3)
-        stages["composite"].append((t3 - t2) * 1e3)
+    with torch.no_grad():
+        for _ in range(3):           # stage split: host clock + synchronize
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            splats = project_gaussians(cloud, camera, W, H, cfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bins = bin_splats(splats, W, H, cfg)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rasterize_tiles(splats, bins, W, H, cfg)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            stages["projection"].append((t1 - t0) * 1e3)
+            stages["binning"].append((t2 - t1) * 1e3)
+            stages["composite"].append((t3 - t2) * 1e3)
 
-    raster_cuda.launches = 0     # count only the main path's launches
-    for _ in range(frames):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, aux = render(cloud, camera, W, H, cfg)
-        rgba = post_process(img, aux["alpha"], cfg)
-        torch.cuda.synchronize()
-        stages["frame"].append((time.perf_counter() - t0) * 1e3)
-    launches = raster_cuda.launches
-    check(launches == frames,
-          f"render launched kernel A {launches} times in {frames} frames")
+        raster_cuda.launches = raster_cuda.launches_bwd = 0
+        for _ in range(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, aux = render(cloud, camera, W, H, cfg)
+            rgba = post_process(img, aux["alpha"], cfg)
+            torch.cuda.synchronize()
+            stages["frame"].append((time.perf_counter() - t0) * 1e3)
+        launches = raster_cuda.launches
+    check(launches == frames and raster_cuda.launches_bwd == 0,
+          f"render launched kernel A {launches} times, B "
+          f"{raster_cuda.launches_bwd} times in {frames} frames")
     check(img.shape == (H, W, 3) and rgba.shape == (H, W, 4), "frame shape")
     check(bool(torch.isfinite(rgba).all()), "non-finite frame")
     mean = rgba[..., :3].mean().item()
@@ -246,12 +428,51 @@ def phase_render(dev, cloud, cfg, frames=5):
     check(abs(overflow - CPU_OVERFLOW) <= 5,
           f"overflow {overflow} vs CPU {CPU_OVERFLOW}")
     med = {k: statistics.median(v) for k, v in stages.items()}
-    print(f"[3 render] {frames} frames {W}x{H}, launches={launches}, "
-          f"num_pairs={num_pairs} (CPU {CPU_PAIRS}), overflow={overflow} "
-          f"(CPU {CPU_OVERFLOW}), visible={int(aux['num_visible'])}, "
-          f"mean rgb {mean:.4f}, alpha>0.01 on {covered:.3f}; medians ms: "
+    print(f"[4 render] {frames} frames {W}x{H}, launches A={launches} "
+          f"B={raster_cuda.launches_bwd}, num_pairs={num_pairs} (CPU "
+          f"{CPU_PAIRS}), overflow={overflow} (CPU {CPU_OVERFLOW}), "
+          f"visible={int(aux['num_visible'])}, mean rgb {mean:.4f}, "
+          f"alpha>0.01 on {covered:.3f}; medians ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
-    return launches
+
+
+def phase_step(dev, cloud, cfg, steps=7):
+    """Forward + backward through `render`, as a training step runs it."""
+    camera = bench_camera(W, H, dev)
+    leaves = {f: getattr(cloud, f).detach().clone().requires_grad_(True)
+              for f in ("xyz", "log_scale", "quat", "opacity_logit", "sh")}
+    weight = torch.linspace(0.5, 1.5, W, device=dev)[None, :, None]
+
+    def step():
+        for t in leaves.values():
+            t.grad = None
+        img, aux = render(type(cloud)(**leaves), camera, W, H, cfg)
+        ((img * weight).sum() + aux["alpha"].sum()).backward()
+
+    step()                                   # warm-up
+    times = []
+    raster_cuda.launches = raster_cuda.launches_bwd = 0
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    la, lb = raster_cuda.launches, raster_cuda.launches_bwd
+    check(la == steps and lb == steps,
+          f"{steps} fwd+bwd steps launched A {la} and B {lb} times")
+    for name, t in leaves.items():
+        check(t.grad is not None and bool(torch.isfinite(t.grad).all()),
+              f"non-finite or missing gradient of {name}")
+    nonzero = {k: float((v.grad != 0).any(-1).float().mean()) if v.dim() > 1
+               else float((v.grad != 0).float().mean())
+               for k, v in leaves.items()}
+    check(nonzero["opacity_logit"] > 0.5, f"gradients too sparse: {nonzero}")
+    print(f"[5 step] fwd+bwd through render at {W}x{H}: launches A={la} "
+          f"B={lb} in {steps} steps; median {statistics.median(times):.2f} "
+          f"ms (min {min(times):.2f}); rows with a gradient: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in nonzero.items()))
+    return {"A": la, "B": lb, "ms": statistics.median(times)}
 
 
 def phase_serve(dev, cloud, cfg):
@@ -261,7 +482,7 @@ def phase_serve(dev, cloud, cfg):
                                             "dy": 0.02}, {"kind": "tick"}]
     before = raster_cuda.launches
     sizes, times = [], []
-    for ev in events:
+    for ev in events[:3]:
         t0 = time.perf_counter()
         frame, _ = app.handle_event(ev)
         png = encode_png(frame)
@@ -271,57 +492,146 @@ def phase_serve(dev, cloud, cfg):
               f"{ev['kind']}: empty or non-finite frame")
         check(png[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
         sizes.append(len(png))
+    for ev in events[3:]:                    # without the PNG encode
+        frame, _ = app.handle_event(ev)
+        check(frame.shape == (720, 1280, 4), f"{ev['kind']}: {frame.shape}")
     rose = raster_cuda.launches - before
     check(rose == len(events), f"serve launched kernel A {rose} times")
-    print(f"[4 serve] ViewerApp 1280x720 answered "
+    print(f"[6 serve] ViewerApp 1280x720 answered "
           + ", ".join(e["kind"] for e in events)
-          + f"; launches +{rose}; PNG bytes {sizes}; ms per event "
+          + f"; launches +{rose}; PNG bytes {sizes}; ms per encoded event "
           + ", ".join(f"{t:.1f}" for t in times))
 
 
-def _decode_png(png: bytes) -> np.ndarray:
-    """Decode the port's own filter-0 RGBA PNGs."""
-    pos, idat = 8, b""
-    w = h = 0
-    while pos < len(png):
-        (n,) = struct.unpack(">I", png[pos:pos + 4])
-        tag, data = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
-        if tag == b"IHDR":
-            w, h = struct.unpack(">II", data[:8])
-            check(data[9] == 6, "PNG is not RGBA")
-        elif tag == b"IDAT":
-            idat += data
-        pos += 12 + n
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
-    check(bool((rows[:, 0] == 0).all()), "unexpected PNG row filter")
-    return rows[:, 1:].reshape(h, w, 4)
+def run_cli(args, what):
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gaussian_splatting_web_tpu_torch.cli", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"cli {what} failed:\n{proc.stderr}")
+    return proc, time.perf_counter() - t0
 
 
-def phase_cli():
+def phase_cli_render():
     with tempfile.TemporaryDirectory() as tmp:
         ply = os.path.join(tmp, "scene100k.ply")
         write_ply(make_scene(100_000, seed=1), ply)
         out = os.path.join(tmp, "renders")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "gaussian_splatting_web_tpu_torch.cli",
-             "render", "--ply", ply, "--out", out, "--device", "cuda",
-             "--width", "1280", "--height", "720"],
-            cwd=REPO, capture_output=True, text=True, timeout=600)
-        dt = time.perf_counter() - t0
-        check(proc.returncode == 0, f"cli render failed:\n{proc.stderr}")
+        proc, dt = run_cli(["render", "--ply", ply, "--out", out, "--device",
+                            "cuda", "--width", "1280", "--height", "720"],
+                           "render")
         pngs = sorted(os.listdir(out))
         check(len(pngs) == 1, f"cli wrote {pngs}")
-        with open(os.path.join(out, pngs[0]), "rb") as f:
-            img = _decode_png(f.read())
+        img = read_png(os.path.join(out, pngs[0]))
         check(img.shape == (720, 1280, 4), f"PNG shape {img.shape}")
         check(int(img[..., 3].max()) > 0, "PNG is empty")
         last = [ln for ln in proc.stderr.splitlines() if "Mpix/s" in ln]
         check(len(last) == 1, f"cli output:\n{proc.stderr}")
-        print(f"[5 cli] render --device cuda on a 100k-splat PLY → "
+        print(f"[7 cli] render --device cuda on a 100k-splat PLY → "
               f"{pngs[0]} {img.shape}, alpha>0 on "
               f"{float((img[..., 3] > 0).mean()):.3f}; process {dt:.1f} s; "
               f"cli says: {last[0].split('  ', 1)[-1]}")
+
+
+def orbit_camera(i, n, w, h, radius=8.0):
+    a = 2 * math.pi * i / n
+    return default_camera(w, h, eye=(radius * math.sin(a), 0.5,
+                                     -radius * math.cos(a)),
+                          center=(0, 0, 0))
+
+
+def phase_train(dev, cfg, iterations=30):
+    with torch.no_grad():
+        target = make_scene(N_SCENE, seed=1, device=dev)
+        views = []
+        for i in range(4):
+            camera = orbit_camera(i, 4, W, H)
+            img, _ = render(target, camera, W, H, cfg)
+            views.append(View(camera=camera, image=img.cpu().numpy(),
+                              name=f"view{i}"))
+        del target
+    model = GaussianModel.from_cloud(make_scene(N_SCENE, seed=0, device=dev))
+    loop = TrainLoopConfig(
+        iterations=iterations, densify_from=20, densify_until=20,
+        densify_every=20, grad_threshold=1e-7, opacity_reset_every=10_000,
+        sh_upgrade_every=10, capacity_factor=2.0, log_every=1)
+    log = []
+
+    def on_log(it, loss, alive):
+        torch.cuda.synchronize()
+        log.append((it, loss, alive, time.perf_counter()))
+
+    raster_cuda.launches = raster_cuda.launches_bwd = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, dstate = train(model, views, W, H, render_config=cfg, loop=loop,
+                          on_log=on_log, device=dev)
+    wall = time.perf_counter() - t0
+    la, lb = raster_cuda.launches, raster_cuda.launches_bwd
+    check(la == iterations and lb == iterations,
+          f"train launched A {la} and B {lb} times in {iterations} "
+          "iterations")
+    losses = [x[1] for x in log]
+    check(len(losses) == iterations and all(map(math.isfinite, losses)),
+          f"losses: {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(last < first, f"loss did not fall: first five {first:.5f}, last "
+          f"five {last:.5f}")
+    alive = [x[2] for x in log]
+    check(alive[-1] != alive[0], f"alive count unchanged at {alive[0]}")
+    for f in PARAMS:
+        check(bool(torch.isfinite(getattr(state.model, f)).all()),
+              f"non-finite {f} after training")
+    per_it = [(b[3] - a[3]) * 1e3 for a, b in zip(log, log[1:])]
+    print(f"[8 train] {iterations} iterations at {W}x{H} from {N_SCENE} "
+          f"splats (arena {state.model.num_gaussians}), launches A={la} "
+          f"B={lb}; loss first five {first:.5f} → last five {last:.5f}; "
+          f"alive {alive[0]} → {alive[-1]} (densify at 20); ms/iteration "
+          f"median {statistics.median(per_it):.2f}, mean "
+          f"{statistics.mean(per_it):.2f}; wall {wall:.1f} s incl. set-up; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"A": la, "B": lb, "ms_per_it": statistics.median(per_it)}
+
+
+def phase_cli_train(dev, cfg):
+    w, h = 320, 240
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "images")
+        os.makedirs(images)
+        scene = make_scene(20_000, seed=2, log_scale_range=(-4.5, -3.0),
+                           device=dev)
+        entries = []
+        with torch.no_grad():
+            for i in range(3):
+                camera = orbit_camera(i, 8, w, h)
+                img, _ = render(scene, camera, w, h, cfg)
+                write_png(img.cpu().numpy(), os.path.join(images,
+                                                          f"view{i}.png"))
+                entries.append({
+                    "id": i, "img_name": f"view{i}", "width": w, "height": h,
+                    "position": camera.cam_pos.tolist(),
+                    "rotation": camera.view[:3, :3].T.tolist(),
+                    "fx": float(camera.focal[0]),
+                    "fy": float(camera.focal[1])})
+        cams = os.path.join(tmp, "cameras.json")
+        with open(cams, "w") as f:
+            json.dump(entries, f)
+        init = os.path.join(tmp, "init.ply")
+        write_ply(make_scene(20_000, seed=3, log_scale_range=(-4.5, -3.0)),
+                  init)
+        out = os.path.join(tmp, "trained.ply")
+        proc, dt = run_cli(["train", "--cameras", cams, "--images", images,
+                            "--ply", init, "--out", out, "--iterations", "20",
+                            "--width", str(w), "--height", str(h),
+                            "--device", "cuda"], "train")
+        trained = read_ply(out, device=dev)
+        check(trained.num_gaussians > 0 and bool(
+            torch.isfinite(trained.xyz).all()), "trained PLY is empty")
+        said = [ln for ln in proc.stderr.splitlines() if "saved" in ln]
+        print(f"[9 cli] train --device cuda on 3 PNG views {w}x{h}, 20 "
+              f"iterations → PLY with {trained.num_gaussians} gaussians "
+              f"(SH {trained.sh_degree}); process {dt:.1f} s; cli says: "
+              f"{said[-1] if said else proc.stderr[-200:]}")
 
 
 def main():
@@ -335,15 +645,26 @@ def main():
         cloud = make_scene(N_SCENE, seed=0, sh_degree=3, device=dev)
         print(f"[scene] make_scene({N_SCENE}) on {dev} in "
               f"{time.perf_counter() - t0:.1f} s")
-        kernel = phase_kernel(dev, cloud, cfg)
-        launches = phase_render(dev, cloud, cfg)
+        fwd, full = phase_kernel(dev, cloud, cfg)
+        bwd = phase_backward(dev, cfg, full)
+        del full
+        phase_render(dev, cloud, cfg)
+    phase_step(dev, cloud, cfg)
+    with torch.no_grad():
         phase_serve(dev, cloud, cfg)
-    phase_cli()
+    del cloud
+    phase_cli_render()
+    trained = phase_train(dev, cfg)
+    phase_cli_train(dev, cfg)
+    results = {"raster_fwd": fwd, "raster_bwd": bwd}
+    launches = {"raster_fwd": trained["A"], "raster_bwd": trained["B"]}
     print(json.dumps({"kernels": [{
-        "name": "raster_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"]}]}))
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches[name],
+        **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}}
+        for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

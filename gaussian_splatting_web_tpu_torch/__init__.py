@@ -9,13 +9,16 @@ with a plain PyTorch twin beside it that CPU tensors take.
 
   config.py   RenderConfig (same fields as the JAX package; exact mode)
   core/       GaussianCloud / CameraParams tensors, camera math
-  io/         PLY read/write, cameras.json
-  ops/        projection + SH, tile binning, compositor, post-process
-    cuda/     kernel wrappers and the nvcc build
-  csrc/       CUDA C++ kernels (sm_90a)
+  io/         PLY read/write, cameras.json, the training dataset
+  models/     GaussianModel (trainable parameters)
+  ops/        projection + SH, tile binning, compositor and its backward,
+              post-process
+    cuda/     kernel wrappers, the differentiable compositor, the nvcc build
+  csrc/       CUDA C++ kernels (sm_90a): raster_fwd.cu (A), raster_bwd.cu (B)
+  train/      losses, per-group Adam, densification, train loop, checkpoints
   viewer/     orbit state machine + web viewer
-  utils/      PNG output
-  cli.py      info / render / serve
+  utils/      PNG encode/decode
+  cli.py      info / render / serve / train
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
-"""Command-line interface of the port (the JAX package's `cli.py`; only the
-forward subcommands are ported so far):
+"""Command-line interface of the port (the JAX package's `cli.py`; `bench`
+and `eval` are not ported yet, ROADMAP §1 items 7 and 9):
 
   python -m gaussian_splatting_web_tpu_torch.cli info   --ply scene.ply
   python -m gaussian_splatting_web_tpu_torch.cli render --ply scene.ply [--cameras cam.json] --out out/ [--device cuda]
   python -m gaussian_splatting_web_tpu_torch.cli serve  --ply scene.ply --port 8090 [--device cuda]
+  python -m gaussian_splatting_web_tpu_torch.cli train  --cameras cameras.json --images images/ [--ply init.ply] --out trained.ply [--device cuda]
 
 `--device` defaults to `cuda`; a CUDA device that is not there is an
 error, never a silent switch to the CPU.
@@ -61,7 +62,7 @@ def _config(args) -> RenderConfig:
 
 
 def cmd_info(args):
-    cloud = read_ply(args.ply)
+    cloud = read_ply(args.ply, device="cpu")
     lo, hi = cloud.bbox()
     print(json.dumps({
         "num_gaussians": cloud.num_gaussians,
@@ -128,14 +129,54 @@ def cmd_serve(args):
           scene_dir=scene_dir, device=device)
 
 
+def cmd_train(args):
+    import shutil
+
+    from .io.dataset import load_dataset
+    from .models.gaussian_model import GaussianModel
+    from .train.checkpoint import has_checkpoint, save_ply
+    from .train.densify import compact
+    from .train.train_loop import TrainLoopConfig, train
+
+    device = _device(args)
+    views = load_dataset(args.cameras, args.images, args.width, args.height,
+                         limit=args.limit or None)
+    print(f"{len(views)} training views at {args.width}x{args.height}",
+          file=sys.stderr)
+    if args.ply:
+        model = GaussianModel.from_cloud(_load(args, device))
+    else:
+        # bootstrap from random points inside the camera hull
+        centers = np.stack([v.camera.cam_pos.numpy() for v in views])
+        lo, hi = centers.min(0) - 1, centers.max(0) + 1
+        rng = np.random.default_rng(0)
+        xyz = rng.uniform(lo, hi, size=(20_000, 3)).astype(np.float32)
+        model = GaussianModel.from_points(xyz, sh_degree=3)
+
+    if args.fresh and args.checkpoint and has_checkpoint(args.checkpoint):
+        # without --fresh, a re-run with the same directory resumes
+        shutil.rmtree(args.checkpoint)
+        print(f"--fresh: removed the loop state in {args.checkpoint}",
+              file=sys.stderr)
+    state, dstate = train(
+        model, views, args.width, args.height, render_config=_config(args),
+        loop=TrainLoopConfig(iterations=args.iterations),
+        checkpoint_dir=args.checkpoint,
+        checkpoint_every=args.checkpoint_every, device=device)
+    final = compact(state.model, dstate)
+    save_ply(final, args.out)
+    print(f"saved {final.num_gaussians} gaussians → {args.out}",
+          file=sys.stderr)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gaussian_splatting_web_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
-        sp.add_argument("--ply", required=True)
+    def common(sp, ply_required=True):
+        sp.add_argument("--ply", required=ply_required)
         sp.add_argument("--device", default="cuda",
-                        help="torch device to render on (default cuda)")
+                        help="torch device to run on (default cuda)")
         sp.add_argument("--width", type=int, default=1280)
         sp.add_argument("--height", type=int, default=720)
         sp.add_argument("--tile-size", dest="tile_size", type=int)
@@ -161,6 +202,25 @@ def main(argv=None):
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=8090)
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("train", help="train a scene from posed images")
+    common(sp, ply_required=False)
+    sp.add_argument("--cameras", required=True, help="INRIA cameras.json")
+    sp.add_argument("--images", required=True,
+                    help="directory of PNG images at --width x --height")
+    sp.add_argument("--out", default="trained.ply")
+    sp.add_argument("--iterations", type=int, default=7000)
+    sp.add_argument("--limit", type=int, default=0, help="max training views")
+    sp.add_argument("--checkpoint", help="directory of the loop state "
+                    "(model, optimizer, iteration): saved every "
+                    "--checkpoint-every iterations, resumed from when present")
+    sp.add_argument("--checkpoint-every", type=int, default=500,
+                    dest="checkpoint_every",
+                    help="save the loop state every N iterations")
+    sp.add_argument("--fresh", action="store_true",
+                    help="discard a loop state in --checkpoint and start "
+                    "from scratch")
+    sp.set_defaults(fn=cmd_train)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -126,7 +126,7 @@ def _read_bytes(path_or_bytes, progress) -> bytes:
 def read_ply(
     path_or_bytes,
     progress: Optional[Callable[[int, int], None]] = None,
-    device="cpu",
+    device="cuda",
 ) -> GaussianCloud:
     """Read an INRIA-style Gaussian-splat PLY (path, bytes or file-like)
     into a GaussianCloud on `device`. `progress(bytes_read, total)` is

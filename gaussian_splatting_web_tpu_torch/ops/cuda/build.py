@@ -4,7 +4,8 @@ Each kernel is one file `csrc/<name>.cu` with a plain C interface, compiled
 by `nvcc` for `sm_90a` into `_build/lib<name>-<hash>.so` (the hash covers the
 source and the flags, so an edit rebuilds) and loaded with `ctypes`.
 `nvcc` is looked up on PATH, then under $CUDA_HOME (default /usr/local/cuda).
-Nothing here runs at import time.
+Each source has its own lock, so `load_all` runs one `nvcc` per source at
+the same time. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -26,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}
-_lock = threading.Lock()
+_locks: dict = {}       # name → lock held while that source builds
+_locks_lock = threading.Lock()
 build_logs: dict = {}   # name → nvcc's stderr (ptxas register/smem report)
 
 
@@ -42,7 +45,9 @@ def find_nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; cached per process."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC_DIR / f"{name}.cu"
@@ -68,3 +73,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         _libs[name] = lib
         return lib
+
+
+def load_all(names) -> dict:
+    """Build and load several sources, one `nvcc` process each, all started
+    together → {name: library}."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))

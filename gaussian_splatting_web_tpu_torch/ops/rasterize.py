@@ -1,4 +1,4 @@
-"""Tile compositor and the full forward render of the port.
+"""Tile compositor, its backward, and the full render of the port.
 
 `composite_tiles` is the plain PyTorch compositor, a twin in exact f32 of
 the JAX package's `ops/rasterize.py::_composite_chunk`: per 16×16 tile it
@@ -21,9 +21,14 @@ pass: the final log-transmittance (the log-T after the last contributing
 pair) and the segment-local index of the last contributing pair (−1 when
 none). These replace the TPU kernel's `fin` (final carry + chunk count).
 
-`rasterize_tiles` dispatches through the CUDA kernel's wrapper
-(`ops/cuda/raster.py::composite_image`): a CUDA tensor launches kernel A,
-a CPU tensor takes this plain twin.
+`composite_backward_plain` is the plain twin of the backward kernel B
+(the JAX package's `ops/pallas/raster_bwd.py::_bwd_kernel`): per pair
+gradient rows in sorted pair order, and `fold_pair_grads` sums them back
+onto the splats (`ops/pallas/raster.py::_fold_pair_grads`).
+
+`rasterize_tiles` goes through the differentiable compositor
+(`ops/cuda/raster.py::composite_image`): a CUDA tensor launches kernels A
+and B, a CPU tensor takes the plain twins.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import RenderConfig
 from ..core.types import CameraParams, GaussianCloud
@@ -39,6 +45,7 @@ from .projection import ProjectedSplats, project_gaussians
 from .sort import TileBins, bin_splats
 
 FIELD_ROW = 12   # mx, my, conic a, b, c, r, g, b, opacity, 3 zero pads
+GRAD_ROW = 9     # d mx, my, conic a, b, c, r, g, b, opacity (raster_bwd.py:368)
 CHUNK_ELEMS = 1 << 25   # bound on tiles·pairs·pixels per plain-twin chunk
 
 
@@ -65,6 +72,81 @@ def pack_splat_fields(splats: ProjectedSplats) -> torch.Tensor:
     ).contiguous()
 
 
+class _Segments(NamedTuple):
+    """One chunk of tiles' segments, padded to the chunk's longest: pair
+    positions and liveness [C, K], fields [C, K, 12], tile-local means
+    [C, K], power and α [C, K, P]."""
+
+    pos: torch.Tensor
+    live: torch.Tensor
+    f: torch.Tensor
+    mx: torch.Tensor
+    my: torch.Tensor
+    power: torch.Tensor
+    alpha: torch.Tensor
+
+
+def _pixel_coords(ts: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile-local pixel coordinates [P] (pixels row-major in the tile)."""
+    u = torch.arange(ts, dtype=torch.float32, device=device)
+    return u.repeat(ts), u.repeat_interleave(ts)
+
+
+def _chunks(bins: TileBins, tile_ids: torch.Tensor, config: RenderConfig):
+    """(starts, counts, spans) of the tile list: each listed tile's segment
+    start and capped count, and (slice, k_len) spans chunked so that one
+    chunk's [C, K, P] temporaries hold at most CHUNK_ELEMS elements (empty
+    chunks skipped)."""
+    p = config.tile_size ** 2
+    starts = bins.tile_start[tile_ids].to(torch.int64)
+    counts = torch.clamp(bins.tile_count[tile_ids],
+                         max=config.max_per_tile).to(torch.int64)
+    counts_host = counts.cpu()
+    n_t = tile_ids.shape[0]
+    k_max = int(counts_host.max()) if n_t else 0
+    spans = []
+    if k_max:
+        chunk = max(1, CHUNK_ELEMS // (k_max * p))
+        for c0 in range(0, n_t, chunk):
+            sl = slice(c0, c0 + chunk)
+            k_len = int(counts_host[sl].max())
+            if k_len:
+                spans.append((sl, k_len))
+    return starts, counts, spans
+
+
+def _segments(fields, bins, tile_ids, starts, counts, sl, k_len, gx,
+              config) -> _Segments:
+    ts = config.tile_size
+    dev = fields.device
+    f32 = torch.float32
+    px, py = _pixel_coords(ts, dev)
+    k = torch.arange(k_len, device=dev)
+    live = k[None, :] < counts[sl, None]                   # [C, K]
+    pos = torch.where(live, starts[sl, None] + k, 0)
+    f = fields[bins.sorted_gidx[pos].to(torch.int64)]      # [C, K, 12]
+    tid = tile_ids[sl].to(torch.int64)
+    ox = ((tid % gx) * ts).to(f32)[:, None]
+    oy = ((tid // gx) * ts).to(f32)[:, None]
+    mx = f[..., 0] - ox
+    my = f[..., 1] - oy
+    ca, cb, cc = f[..., 2], f[..., 3], f[..., 4]
+    op = f[..., 8]
+
+    v0 = torch.log(torch.clamp(op, min=1e-30)) - (
+        0.5 * ca * mx * mx + cb * mx * my + 0.5 * cc * my * my)
+    v1 = ca * mx + cb * my
+    v2 = cc * my + cb * mx
+    v3, v4, v5 = -0.5 * ca, -0.5 * cc, -cb
+    power = (v0[..., None] + v1[..., None] * px + v2[..., None] * py
+             + v3[..., None] * (px * px) + v4[..., None] * (py * py)
+             + v5[..., None] * (px * py))                     # [C, K, P]
+    alpha = torch.where(
+        live[..., None] & (power >= math.log(config.alpha_cutoff)),
+        torch.clamp(torch.exp(power), max=config.alpha_max), 0.0)
+    return _Segments(pos, live, f, mx, my, power, alpha)
+
+
 def composite_tiles(
     fields: torch.Tensor,
     bins: TileBins,
@@ -74,62 +156,19 @@ def composite_tiles(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Composite a list of tiles → (rgba [T, P, 4], final_log_t [T, P],
     last_idx [T, P] int32), P = tile_size², pixels row-major in the tile."""
-    ts = config.tile_size
-    p = ts * ts
+    p = config.tile_size ** 2
     dev = fields.device
-    f32 = torch.float32
     n_t = tile_ids.shape[0]
-
-    starts = bins.tile_start[tile_ids].to(torch.int64)
-    counts = torch.clamp(bins.tile_count[tile_ids],
-                         max=config.max_per_tile).to(torch.int64)
-    counts_host = counts.cpu()
-
-    rgba = torch.zeros((n_t, p, 4), dtype=f32, device=dev)
-    final_log_t = torch.zeros((n_t, p), dtype=f32, device=dev)
+    rgba = torch.zeros((n_t, p, 4), dtype=torch.float32, device=dev)
+    final_log_t = torch.zeros((n_t, p), dtype=torch.float32, device=dev)
     last_idx = torch.full((n_t, p), -1, dtype=torch.int32, device=dev)
-    k_max = int(counts_host.max()) if n_t else 0
-    if k_max == 0:
-        return rgba, final_log_t, last_idx
-
-    u = torch.arange(ts, dtype=f32, device=dev)
-    px = u.repeat(ts)                     # [P] tile-local x = pix % ts
-    py = u.repeat_interleave(ts)          # [P] tile-local y = pix // ts
-    pxx, pyy, pxy = px * px, py * py, px * py
-    log_cut = math.log(config.alpha_cutoff)
     log_eps = math.log(config.transmittance_eps)
 
-    chunk = max(1, CHUNK_ELEMS // (k_max * p))
-    for c0 in range(0, n_t, chunk):
-        sl = slice(c0, c0 + chunk)
-        k_len = int(counts_host[sl].max())
-        if k_len == 0:
-            continue
-        k = torch.arange(k_len, device=dev)
-        live = k[None, :] < counts[sl, None]                   # [C, K]
-        pos = torch.where(live, starts[sl, None] + k, 0)
-        f = fields[bins.sorted_gidx[pos].to(torch.int64)]      # [C, K, 12]
-        tid = tile_ids[sl].to(torch.int64)
-        ox = ((tid % gx) * ts).to(f32)[:, None]
-        oy = ((tid // gx) * ts).to(f32)[:, None]
-        mx = f[..., 0] - ox
-        my = f[..., 1] - oy
-        ca, cb, cc = f[..., 2], f[..., 3], f[..., 4]
-        rgb = f[..., 5:8]
-        op = f[..., 8]
-
-        v0 = torch.log(torch.clamp(op, min=1e-30)) - (
-            0.5 * ca * mx * mx + cb * mx * my + 0.5 * cc * my * my)
-        v1 = ca * mx + cb * my
-        v2 = cc * my + cb * mx
-        v3, v4, v5 = -0.5 * ca, -0.5 * cc, -cb
-        power = (v0[..., None] + v1[..., None] * px + v2[..., None] * py
-                 + v3[..., None] * pxx + v4[..., None] * pyy
-                 + v5[..., None] * pxy)                          # [C, K, P]
-        alpha = torch.where(
-            live[..., None] & (power >= log_cut),
-            torch.clamp(torch.exp(power), max=config.alpha_max), 0.0)
-
+    starts, counts, spans = _chunks(bins, tile_ids, config)
+    for sl, k_len in spans:
+        seg = _segments(fields, bins, tile_ids, starts, counts, sl, k_len,
+                        gx, config)
+        alpha = seg.alpha
         log1m = torch.log1p(-alpha)
         log_t_incl = torch.cumsum(log1m, dim=1)
         log_t_excl = log_t_incl - log1m
@@ -137,13 +176,119 @@ def composite_tiles(
                             dim=1).values > 0
         w = torch.where(done, 0.0, alpha * torch.exp(log_t_excl))
 
-        rgba[sl, :, :3] = torch.einsum("ckp,ckq->cpq", w, rgb)
+        rgba[sl, :, :3] = torch.einsum("ckp,ckq->cpq", w, seg.f[..., 5:8])
         rgba[sl, :, 3] = w.sum(dim=1)
         final_log_t[sl] = torch.where(done, 0.0, log1m).sum(dim=1)
         contrib = ~done & (alpha > 0)
+        k = torch.arange(k_len, device=dev)
         last_idx[sl] = torch.where(contrib, k[None, :, None], -1).amax(
             dim=1).to(torch.int32)
     return rgba, final_log_t, last_idx
+
+
+def tile_major(img: torch.Tensor, gx: int, gy: int, ts: int,
+               fill: float = 0.0) -> torch.Tensor:
+    """[H, W, C] → [gx·gy, ts², C], padding the ragged edge with `fill`
+    (the transpose of `assemble_image`)."""
+    h, w, c = img.shape
+    img = F.pad(img, (0, 0, 0, gx * ts - w, 0, gy * ts - h), value=fill)
+    return img.reshape(gy, ts, gx, ts, c).permute(0, 2, 1, 3, 4).reshape(
+        gx * gy, ts * ts, c)
+
+
+def composite_backward_plain(
+    fields: torch.Tensor,
+    bins: TileBins,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    composite: Composite,
+    d_rgb: torch.Tensor,
+    d_alpha: torch.Tensor,
+) -> torch.Tensor:
+    """The plain twin of kernel B → per-pair gradient rows [M, 9] in
+    sorted pair order (rows: mx, my, conic a, b, c, r, g, b, opacity).
+
+    Per tile it recomputes α from the same rank-6 form as the forward,
+    T_k from the exclusive log-T cumsum, and the suffix
+    S_k = Σ_{j>k} r_j w_j with r = g_rgb·c + g_α (raster_bwd.py:8-12):
+    dα = T r − S/(1−α) on the pairs that contributed (k ≤ the pixel's
+    last_idx, α > 0), zero through the 0.99 clamp, dpow = dα·e^power.
+    The geometry gradients come from pixel moments of dpow in tile-local
+    coordinates (raster_bwd.py:337-358), d_op = Σ dpow / op. Pairs cut by
+    the tile cap, and pairs no pixel reached, keep zero rows."""
+    ts = config.tile_size
+    dev = fields.device
+    gx, gy = config.grid_size(width, height)
+    tile_ids = torch.arange(gx * gy, device=dev)
+    m = bins.sorted_gidx.shape[0]
+    out = torch.zeros((m, GRAD_ROW), dtype=torch.float32, device=dev)
+
+    cot = tile_major(torch.cat([d_rgb, d_alpha[..., None]], -1), gx, gy, ts)
+    last = tile_major(composite.last_idx[..., None], gx, gy, ts,
+                      fill=-1)[..., 0]                       # [T, P]
+    px, py = _pixel_coords(ts, dev)
+    u = torch.stack([torch.ones_like(px), px, py, px * px, py * py, px * py],
+                    dim=-1)                                   # [P, 6]
+
+    starts, counts, spans = _chunks(bins, tile_ids, config)
+    for sl, k_len in spans:
+        seg = _segments(fields, bins, tile_ids, starts, counts, sl, k_len,
+                        gx, config)
+        alpha = seg.alpha
+        a_raw = torch.exp(seg.power)
+        log1m = torch.log1p(-alpha)
+        t = torch.exp(torch.cumsum(log1m, dim=1) - log1m)
+        k = torch.arange(k_len, device=dev)
+        contrib = (k[None, :, None] <= last[sl][:, None, :]) & (alpha > 0)
+        w = torch.where(contrib, alpha * t, 0.0)
+        g = cot[sl]                                           # [C, P, 4]
+        r = torch.einsum("ckq,cpq->ckp", seg.f[..., 5:8], g[..., :3]) \
+            + g[:, None, :, 3]
+        rw = r * w
+        s_incl = rw.flip(1).cumsum(1).flip(1)
+        s = torch.cat([s_incl[:, 1:], torch.zeros_like(s_incl[:, :1])], 1)
+        dalpha = torch.where(contrib, t * r - s / (1.0 - alpha), 0.0)
+        dpow = torch.where(a_raw > config.alpha_max, 0.0, dalpha) * a_raw
+
+        mom = torch.einsum("ckp,pm->ckm", dpow, u)            # [C, K, 6]
+        m0, m1x, m1y, m2xx, m2yy, m2xy = mom.unbind(-1)
+        mx, my = seg.mx, seg.my
+        ca, cb, cc, op = (seg.f[..., 2], seg.f[..., 3], seg.f[..., 4],
+                          seg.f[..., 8])
+        c1x = m1x - mx * m0
+        c1y = m1y - my * m0
+        grads = torch.stack([
+            ca * c1x + cb * c1y,
+            cc * c1y + cb * c1x,
+            -0.5 * (m2xx - 2.0 * mx * m1x + mx * mx * m0),
+            -(m2xy - mx * m1y - my * m1x + mx * my * m0),
+            -0.5 * (m2yy - 2.0 * my * m1y + my * my * m0),
+        ], dim=-1)
+        color = torch.einsum("ckp,cpq->ckq", w, g[..., :3])   # [C, K, 3]
+        d_op = m0 / torch.clamp(op, min=1e-30)
+        rows = torch.cat([grads, color, d_op[..., None]], dim=-1)
+        out[seg.pos[seg.live]] = rows[seg.live]
+    return out
+
+
+def fold_pair_grads(dpairs: torch.Tensor, bins: TileBins,
+                    n: int) -> torch.Tensor:
+    """Sum the sorted pair gradients [M, 9] back onto the splats → [N, 9]
+    (the exact single-tier `_fold_pair_grads`, ops/pallas/raster.py:655).
+
+    Pair position i came from slot `sorted_slot[i]` = k·N + g of the
+    slot-major [max_dup, N] grid, and the map is a permutation, so the rows
+    are copied (never added) into a zero [max_dup·N, 9] buffer and the
+    buffer is summed over its slot axis: deterministic, no atomics. Slots
+    with no row (dead, or cut by the gather cap) stay zero. The buffer is
+    max_dup·N·36 bytes: 576 MB at 1M splats and max_dup 16."""
+    slots = bins.sorted_slot.shape[0]
+    buf = dpairs.new_zeros((slots, GRAD_ROW))
+    if n == 0:
+        return buf.reshape(0, GRAD_ROW)
+    buf.index_copy_(0, bins.sorted_slot[:dpairs.shape[0]].long(), dpairs)
+    return buf.reshape(slots // n, n, GRAD_ROW).sum(0)
 
 
 def assemble_image(tiles: torch.Tensor, width: int, height: int,
@@ -178,8 +323,8 @@ def rasterize_tiles(
     height: int,
     config: RenderConfig,
 ) -> Composite:
-    """Composite all tiles: kernel A for CUDA tensors, the plain twin for
-    CPU tensors."""
+    """Composite all tiles, differentiably: kernels A and B for CUDA
+    tensors, the plain twins for CPU tensors."""
     from .cuda.raster import composite_image
 
     return composite_image(pack_splat_fields(splats), bins, width, height,
@@ -193,9 +338,9 @@ def render_impl(
     height: int,
     config: RenderConfig = RenderConfig(),
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full forward render on the cloud's device: project → bin →
-    composite (+ background). Returns (image [H, W, 3], aux) with aux
-    holding alpha and the binning counts."""
+    """Full render on the cloud's device: project → bin → composite
+    (+ background), differentiable in the cloud's parameters. Returns
+    (image [H, W, 3], aux) with aux holding alpha and the binning counts."""
     camera = camera.to(cloud.device)
     splats = project_gaussians(cloud, camera, width, height, config)
     bins = bin_splats(splats, width, height, config)

@@ -135,13 +135,15 @@ def candidate_slot_tiles(x0, y0, rw, ntg, d: int, gx: int, num_tiles: int):
     return tile, live
 
 
+@torch.no_grad()
 def bin_splats(
     splats: ProjectedSplats,
     width: int,
     height: int,
     config: RenderConfig,
 ) -> TileBins:
-    """Bin projected splats into depth-sorted per-tile segments."""
+    """Bin projected splats into depth-sorted per-tile segments (no
+    gradient flows through binning)."""
     gx, gy = config.grid_size(width, height)
     num_tiles = gx * gy
     n = splats.depth.shape[0]

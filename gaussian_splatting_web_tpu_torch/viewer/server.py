@@ -210,7 +210,7 @@ class ViewerApp:
     def load_scene(self, ply_bytes: bytes) -> dict:
         """Hot-swap the scene (the reference's handlePlyChange,
         index.ts:29-54)."""
-        cloud = read_ply(ply_bytes)
+        cloud = read_ply(ply_bytes, device=self.device)
         with self.lock:
             self._set_cloud(cloud)
         return self.info()
@@ -229,7 +229,7 @@ class ViewerApp:
         path = os.path.join(scene_dir, base)
         if not os.path.isfile(path):
             raise FileNotFoundError(base)
-        cloud = read_ply(path)
+        cloud = read_ply(path, device=self.device)
         with self.lock:
             self._set_cloud(cloud)
         return self.info()

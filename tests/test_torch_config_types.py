@@ -95,6 +95,9 @@ def test_port_imports_no_jax():
         "gaussian_splatting_web_tpu_torch.cli",
         "gaussian_splatting_web_tpu_torch.core.camera",
         "gaussian_splatting_web_tpu_torch.io",
+        "gaussian_splatting_web_tpu_torch.io.dataset",
+        "gaussian_splatting_web_tpu_torch.io.ply",
+        "gaussian_splatting_web_tpu_torch.models.gaussian_model",
         "gaussian_splatting_web_tpu_torch.ops.composite",
         "gaussian_splatting_web_tpu_torch.ops.cuda.build",
         "gaussian_splatting_web_tpu_torch.ops.cuda.raster",
@@ -102,6 +105,11 @@ def test_port_imports_no_jax():
         "gaussian_splatting_web_tpu_torch.ops.rasterize",
         "gaussian_splatting_web_tpu_torch.ops.sh",
         "gaussian_splatting_web_tpu_torch.ops.sort",
+        "gaussian_splatting_web_tpu_torch.train.checkpoint",
+        "gaussian_splatting_web_tpu_torch.train.densify",
+        "gaussian_splatting_web_tpu_torch.train.loss",
+        "gaussian_splatting_web_tpu_torch.train.train_loop",
+        "gaussian_splatting_web_tpu_torch.train.trainer",
         "gaussian_splatting_web_tpu_torch.utils.image",
         "gaussian_splatting_web_tpu_torch.viewer.orbit",
         "gaussian_splatting_web_tpu_torch.viewer.server",

@@ -1,4 +1,5 @@
-"""Kernel A on the card vs its plain PyTorch twin, at small sizes.
+"""Kernels A and B on the card vs their plain PyTorch twins, at small
+sizes, and the launches of a render and of a training step.
 
 Marked `gpu`: every test skips without a CUDA device. The file imports
 neither jax nor tests/conftest.py, so it runs on the machine with the card:
@@ -12,13 +13,20 @@ import numpy as np
 import pytest
 import torch
 
-from gaussian_splatting_web_tpu_torch.bench_lib import make_scene
+from gaussian_splatting_web_tpu_torch.bench_lib import (
+    grad_parity,
+    grad_parity_ok,
+    make_scene,
+)
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.core import camera as cam
+from gaussian_splatting_web_tpu_torch.core.types import GaussianCloud
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
 from gaussian_splatting_web_tpu_torch.ops.projection import project_gaussians
 from gaussian_splatting_web_tpu_torch.ops.rasterize import (
+    composite_backward_plain,
     composite_image_plain,
+    fold_pair_grads,
     pack_splat_fields,
     render,
 )
@@ -29,6 +37,7 @@ pytestmark = pytest.mark.gpu
 CFG = RenderConfig(max_dup=16, max_per_tile=256)
 # the repo's image rule (tests/conftest.py::assert_images_close)
 ATOL, MAX_BAD_FRAC = 2e-4, 2e-4
+FIELDS = ("xyz", "log_scale", "quat", "opacity_logit", "sh")
 
 
 @pytest.fixture
@@ -42,7 +51,7 @@ def device():
 
 def _scene(seed, n=150, opaque=False):
     cloud = make_scene(n, seed=seed, sh_degree=1,
-                       log_scale_range=(-3.5, -1.5))
+                       log_scale_range=(-3.5, -1.5), device="cpu")
     if opaque:   # stacked opaque splats: every central pixel exits early
         rng = np.random.default_rng(seed)
         cloud.xyz = torch.from_numpy(np.concatenate(
@@ -101,9 +110,88 @@ def test_render_launches_kernel_once_per_frame(device):
     assert img.device.type == "cuda" and torch.isfinite(img).all()
 
 
-def test_kernel_refuses_grad(device):
-    cloud = _scene(0).to(device)
-    cloud.xyz.requires_grad_(True)
+def _backward_vs_plain(cloud, w, h, dev, cfg=CFG):
+    """Kernel B against its plain twin on the same bins, residual and
+    cotangents, after the fold: the scale-relative gradient rule."""
+    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    splats = project_gaussians(cloud.to(dev), camera.to(dev), w, h, cfg)
+    bins = bin_splats(splats, w, h, cfg)
+    fields = pack_splat_fields(splats)
+    fwd = raster_cuda.composite_image(fields, bins, w, h, cfg)
+    gen = torch.Generator().manual_seed(0)
+    d_rgb = torch.randn((h, w, 3), generator=gen).to(dev)
+    d_alpha = torch.randn((h, w), generator=gen).to(dev)
+    got = raster_cuda.composite_backward(fields, bins, w, h, cfg, fwd, d_rgb,
+                                         d_alpha)
+    want = composite_backward_plain(fields, bins, w, h, cfg, fwd, d_rgb,
+                                    d_alpha)
+    torch.cuda.synchronize()
+    n = fields.shape[0]
+    g_got = fold_pair_grads(got, bins, n)
+    g_want = fold_pair_grads(want, bins, n)
+    stats = grad_parity(g_got.T, g_want.T)
+    # f32 sums in another order; discrete flips bounded in count
+    assert grad_parity_ok(stats, extra=2), stats
+    assert torch.isfinite(got).all() and g_want.abs().max() > 0
+    return stats
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backward_kernel_matches_plain(device, seed):
+    _backward_vs_plain(_scene(seed), 64, 48, device)
+
+
+def test_backward_kernel_early_exit_scene(device):
+    _backward_vs_plain(_scene(5, n=40, opaque=True), 48, 48, device)
+
+
+def test_backward_kernel_ragged_frame_and_cap(device):
+    _backward_vs_plain(_scene(3, n=200), 72, 40, device,
+                       cfg=CFG.replace(max_per_tile=32))
+
+
+def test_grads_flow_through_kernels(device):
+    """render on the card is differentiable: A forward, B backward, once
+    each, and the parameter gradients agree with the CPU path's."""
+    cpu = _scene(0)
     camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        render(cloud, camera, 64, 48, CFG)
+    grads = []
+    for dev in (torch.device("cpu"), device):
+        cloud = GaussianCloud(**{
+            f: getattr(cpu, f).clone().to(dev).requires_grad_(True)
+            for f in FIELDS})
+        raster_cuda.launches = raster_cuda.launches_bwd = 0
+        img, _ = render(cloud, camera, 64, 48, CFG)
+        (img * img).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert raster_cuda.launches == raster_cuda.launches_bwd == 1
+        else:
+            assert raster_cuda.launches == raster_cuda.launches_bwd == 0
+        grads.append([getattr(cloud, f).grad for f in FIELDS])
+    for g in grads[1]:
+        assert torch.isfinite(g).all()
+    assert grad_parity_ok(grad_parity(grads[1], grads[0]), extra=2)
+
+
+def test_train_step_launches_each_kernel_once(device):
+    from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
+        GaussianModel,
+    )
+    from gaussian_splatting_web_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
+    with torch.no_grad():
+        target, _ = render(_scene(1).to(device), camera, 64, 48, CFG)
+    model = GaussianModel.from_cloud(_scene(0)).to(device)
+    state = TrainState(model, make_optimizer(model))
+    step = make_train_step(64, 48, CFG)
+    raster_cuda.launches = raster_cuda.launches_bwd = 0
+    losses = [float(step(state, camera, target)[1]) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert raster_cuda.launches == raster_cuda.launches_bwd == 3
+    assert all(np.isfinite(losses)) and state.step == 3

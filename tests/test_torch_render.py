@@ -115,7 +115,7 @@ def test_ply_roundtrip_against_jax_reader(tmp_path):
     path = tmp_path / "scene.ply"
     write_ply(GaussianCloud.from_numpy(src), str(path))
     ref = jax_read_ply(str(path), use_native=False)
-    got = read_ply(str(path))
+    got = read_ply(str(path), device="cpu")
     for f in ("xyz", "log_scale", "quat", "opacity_logit", "sh"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)), err_msg=f)
@@ -125,7 +125,7 @@ def test_ply_roundtrip_against_jax_reader(tmp_path):
 
 def test_make_scene_matches_jax():
     ref = jax_bench.make_scene(500, seed=3)
-    got = bench_lib.make_scene(500, seed=3)
+    got = bench_lib.make_scene(500, seed=3, device="cpu")
     for f in ("xyz", "log_scale", "quat", "opacity_logit", "sh"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)), err_msg=f)
@@ -156,3 +156,12 @@ def test_cli_cuda_without_gpu_is_an_error(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main(["render", "--ply", str(ply), "--out", str(tmp_path / "o")])
     assert not (tmp_path / "o").exists()
+
+
+def test_loaders_default_to_the_card():
+    """read_ply and make_scene put a scene on the card unless told
+    otherwise, as the CLI and the viewer do."""
+    import inspect
+
+    for fn in (read_ply, bench_lib.make_scene):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
