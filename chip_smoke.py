@@ -35,6 +35,26 @@ printing one line; any failure raises and exits non-zero:
   9 cli      `cli train --device cuda` on a small synthetic capture (PNGs
              and cameras.json written here) writes a PLY `read_ply` loads
 
+The anchor-binning path (`RenderConfig(binning="anchor")`, kernels C and D,
+default caps: 1,536-position covers, k_cap 1024):
+
+ 10 anchor   kernel C vs its plain twin on the same anchor bins: the opaque
+             and ragged scenes, a crowded 64x48 scene whose ranges overrun
+             their cover and whose tiles hold more than k_cap candidates,
+             and 1080p; identical ordered lists, the image rule; C and its
+             twin timed at 1080p
+ 11 anchor   kernel D vs its plain twin after the fold on the same scenes
+             (the gradient rule), bitwise repeatable; D, its twin and the
+             fold timed at 1080p
+ 12 anchor   `render` at 1080p for a few frames: one C launch per frame, no
+             A or B; entries, overflow and truncated ranges against the JAX
+             package's CPU figures; per-stage medians; the share of pixels
+             off the dup path's frame by more than 2e-4 (printed, not gated)
+ 13 anchor   fwd+bwd through `render` at 1080p, C and D once per step,
+             finite parameter gradients; `ViewerApp` answers two events
+ 14 anchor   `train()` as phase 8 with binning='anchor': C and D once per
+             iteration, finite losses that fall; ms/iteration
+
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
 residual log-transmittance agrees to 1e-4. Gradient rule
@@ -47,9 +67,13 @@ Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on this run's data
 over the card's peak: FP32 operations over 67 TFLOP/s, and exp/log1p/
 reciprocal over the special-function units (16 per SM per clock, 132 SMs,
-1.98 GHz). Pair-pixel steps are counted from this run's bins: kernel A
-walks each pixel up to its early exit, kernel B up to its last
-contributing pair.
+1.98 GHz). Pair-pixel steps are counted from this run's bins: kernels A
+and C walk each pixel up to its early exit, B and D up to its last
+contributing pair; C and D count as A and B per step over the ordered
+lists. C's bytes add its merge's union loads (5 bytes per position read,
+every tile's two covers) and its ordered-list outputs; its sort's compares
+are not counted as operations. D's bytes count the ordered lists it reads
+and the rows it writes (36 bytes per kept pair), not the zeroed array.
 
 Prints the card line, a JSON line of kernel results, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -82,8 +106,9 @@ from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
     PARAMS,
     GaussianModel,
 )
-from gaussian_splatting_web_tpu_torch.ops import rasterize
+from gaussian_splatting_web_tpu_torch.ops import anchor, rasterize
 from gaussian_splatting_web_tpu_torch.ops.composite import post_process
+from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
 from gaussian_splatting_web_tpu_torch.ops.projection import project_gaussians
@@ -113,6 +138,9 @@ N_SCENE = 1_000_000
 # the JAX package's exact-mode projection + binning of this scene and
 # camera on the CPU: live (tile, splat) pairs and centre-shrunk splats
 CPU_PAIRS, CPU_OVERFLOW = 2_150_328, 13
+# the same for the anchor binning: live pairs, overflow (dup-tier tiles past
+# max_dup) and (tile, range) covers the range overruns
+ANCHOR_PAIRS, ANCHOR_OVERFLOW, ANCHOR_TRUNCATED = 2_150_377, 248, 264
 ATOL, MAX_BAD_FRAC, LOG_T_TOL = 2e-4, 2e-4, 1e-4
 GRAD_EXTRA = 2            # knife-edge outliers allowed on top of 1e-5 of n
 KERNELS = {
@@ -120,6 +148,10 @@ KERNELS = {
                    "gaussian_splatting_web_tpu/ops/pallas/raster.py:219"),
     "raster_bwd": ("gaussian_splatting_web_tpu_torch/csrc/raster_bwd.cu",
                    "gaussian_splatting_web_tpu/ops/pallas/raster_bwd.py:64"),
+    "anchor_fwd": ("gaussian_splatting_web_tpu_torch/csrc/anchor_fwd.cu",
+                   "gaussian_splatting_web_tpu/ops/pallas/anchor.py:639"),
+    "anchor_bwd": ("gaussian_splatting_web_tpu_torch/csrc/anchor_bwd.cu",
+                   "gaussian_splatting_web_tpu/ops/pallas/anchor.py:928"),
 }
 # peaks of one H100 SXM (NVIDIA data sheet; SFU: 16 results per SM per
 # clock at the 1.98 GHz boost clock)
@@ -132,8 +164,10 @@ HBM_BYTES_S, FP32_FLOPS_S, SFU_OPS_S = 3.35e12, 67e12, 132 * 16 * 1.98e9
 # and their nine reduction adds (35 FP32) and exp, log1p, exp and the
 # reciprocal of 1 − α (4 SFU)
 STEP_FP32 = 11
-PASS_FP32 = {"raster_fwd": 12, "raster_bwd": 35}
-PASS_SFU = {"raster_fwd": 3, "raster_bwd": 4}
+PASS_FP32 = {"raster_fwd": 12, "raster_bwd": 35, "anchor_fwd": 12,
+             "anchor_bwd": 35}
+PASS_SFU = {"raster_fwd": 3, "raster_bwd": 4, "anchor_fwd": 3,
+            "anchor_bwd": 4}
 
 
 class SmokeFailure(RuntimeError):
@@ -143,6 +177,17 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def launch_counts():
+    """Launches of kernels A, B, C and D since the last reset."""
+    return {"A": raster_cuda.launches, "B": raster_cuda.launches_bwd,
+            "C": anchor_cuda.launches, "D": anchor_cuda.launches_bwd}
+
+
+def reset_counts():
+    raster_cuda.launches = raster_cuda.launches_bwd = 0
+    anchor_cuda.launches = anchor_cuda.launches_bwd = 0
 
 
 def median_ms(fn, runs, warmup=2):
@@ -384,7 +429,154 @@ def phase_backward(dev, cfg, full):
             "bound_by": bound_by, "library_ms": None, "fold_ms": fold_ms}
 
 
-def phase_render(dev, cloud, cfg, frames=5):
+def crowded_scene(dev):
+    """2500 small splats over the central tiles of a 64x48 frame: at the
+    default caps some ranges overrun their 1,536-position cover and some
+    tiles hold more than k_cap = 1024 touched candidates."""
+    cloud = make_scene(2500, seed=9, sh_degree=0,
+                       log_scale_range=(-3.5, -1.5), device=dev)
+    cloud.xyz = cloud.xyz * 0.15
+    return ("crowded 64x48", cloud, 64, 48, -6.0)
+
+
+def anchor_binned(cloud, camera, w, h, cfg):
+    splats = project_gaussians(cloud, camera, w, h, cfg)
+    return pack_splat_fields(splats), anchor.bin_splats_anchor(splats, w, h,
+                                                                cfg)
+
+
+def anchor_vs_plain(fields, abins, w, h, cfg, what):
+    """Kernel C against its plain twin: identical ordered lists, lengths
+    and row groups, and the image rule."""
+    got, merge = anchor_cuda.composite_anchor(fields, abins, w, h, cfg)
+    want, want_merge = anchor.composite_anchor_plain(fields, abins, w, h,
+                                                     cfg)
+    for name, a, b in zip(anchor.Merge._fields, merge, want_merge):
+        check(torch.equal(a, b), f"{what}: kernel C's {name} differs from "
+              "the plain merge")
+    return compare(got, want, what), got, merge
+
+
+def phase_anchor_kernel(dev, cloud, cfg):
+    findings = {}
+    half = anchor.c_max(cfg) * anchor.KCL
+    kc = anchor.k_cap(cfg)
+    for what, scene, w, h, z in small_scenes(dev) + [crowded_scene(dev)]:
+        camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
+        fields, abins = anchor_binned(scene, camera, w, h, cfg)
+        findings[what], got, merge = anchor_vs_plain(fields, abins, w, h, cfg,
+                                                     what)
+        if what.startswith("crowded"):
+            rng = anchor.tile_ranges(abins, *cfg.grid_size(w, h), cfg)
+            check(int((rng.s1 - rng.base).max()) > half and
+                  int(merge.k_used.max()) == kc,
+                  "crowded scene: no cover overrun or no k_cap cut")
+
+    camera = bench_camera(W, H, dev)
+    fields, abins = anchor_binned(cloud, camera, W, H, cfg)
+    findings["1080p"], got, merge = anchor_vs_plain(fields, abins, W, H, cfg,
+                                                    "1080p")
+    ms = median_ms(
+        lambda: anchor_cuda.composite_anchor(fields, abins, W, H, cfg), 7)
+    plain_ms = median_ms(
+        lambda: anchor.composite_anchor_plain(fields, abins, W, H, cfg), 7,
+        warmup=1)
+    view, vcfg = anchor.ordered_view(abins, merge, cfg)
+    steps = work(fields, view, got, W, H, vcfg)
+    gx, gy = cfg.grid_size(W, H)
+    t = gx * gy
+    rng = anchor.tile_ranges(abins, gx, gy, cfg)
+    union = int(torch.clamp(torch.minimum(rng.s1, rng.base + half) - rng.s0,
+                            min=0).sum())
+    kept = int(merge.k_used.sum())
+    nbytes = (fields.numel() * 4 + (t + 1) * 4 + union * 5 + kept * 4
+              + H * W * 6 * 4 + t * kc * 5 + t * 4)
+    bound_ms, bound_by = bound("anchor_fwd", steps[0], steps[1], nbytes)
+    print(f"[10 anchor] kernel C vs plain twin: "
+          + "; ".join(f"{k}: max_abs_err {v['max_abs_err']:.3e}, "
+                      f">{ATOL} on {v['bad_frac']:.2e}, "
+                      f"log-T err {v['log_t_err']:.2e}, "
+                      f"last-idx diff {v['last_idx_frac']:.2e}"
+                      for k, v in findings.items())
+          + f"; ordered lists identical; 1080p kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; union positions read {union}, kept pairs "
+          f"{kept}; pair-pixel steps {steps[0]} ({steps[1]} past the "
+          f"cutoff), {nbytes} bytes: bound {bound_ms:.4f} ms by {bound_by}")
+    return {"max_abs_err": findings["1080p"]["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, (fields, abins, got,
+                                                        merge, steps)
+
+
+def anchor_backward_vs_plain(fields, abins, fwd, merge, w, h, cfg, what):
+    """Kernel D against its plain twin after the fold (the gradient rule),
+    and D run twice on the same inputs gives the same bits."""
+    gen = torch.Generator(device=fields.device).manual_seed(0)
+    d_rgb = torch.randn((h, w, 3), generator=gen, device=fields.device)
+    d_alpha = torch.randn((h, w), generator=gen, device=fields.device)
+    got = anchor_cuda.composite_anchor_backward(fields, abins, w, h, cfg, fwd,
+                                                merge, d_rgb, d_alpha)
+    again = anchor_cuda.composite_anchor_backward(fields, abins, w, h, cfg,
+                                                  fwd, merge, d_rgb, d_alpha)
+    check(torch.equal(got, again), f"{what}: kernel D is not deterministic")
+    want = anchor.composite_anchor_backward_plain(fields, abins, w, h, cfg,
+                                                  fwd, d_rgb, d_alpha)
+    n = fields.shape[0]
+    g_got = anchor.fold_anchor_grads(got, abins, n)
+    g_want = anchor.fold_anchor_grads(want, abins, n)
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite D output")
+    check(g_want.abs().max().item() > 0, f"{what}: zero gradients")
+    stats = grad_parity(g_got.T, g_want.T)
+    stats["max_abs_err"] = (g_got - g_want).abs().max().item()
+    check(grad_parity_ok(stats, GRAD_EXTRA),
+          f"{what}: kernel D vs twin outside the gradient rule: {stats}")
+    return stats, (d_rgb, d_alpha, got)
+
+
+def phase_anchor_backward(dev, cfg, full):
+    findings = {}
+    for what, scene, w, h, z in small_scenes(dev) + [crowded_scene(dev)]:
+        camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
+        fields, abins = anchor_binned(scene, camera, w, h, cfg)
+        fwd, merge = anchor_cuda.composite_anchor(fields, abins, w, h, cfg)
+        findings[what], _ = anchor_backward_vs_plain(fields, abins, fwd,
+                                                     merge, w, h, cfg, what)
+    fields, abins, fwd, merge, steps = full
+    stats, (d_rgb, d_alpha, dpairs) = anchor_backward_vs_plain(
+        fields, abins, fwd, merge, W, H, cfg, "1080p")
+    findings["1080p"] = stats
+    ms = median_ms(lambda: anchor_cuda.composite_anchor_backward(
+        fields, abins, W, H, cfg, fwd, merge, d_rgb, d_alpha), 7)
+    plain_ms = median_ms(lambda: anchor.composite_anchor_backward_plain(
+        fields, abins, W, H, cfg, fwd, d_rgb, d_alpha), 7, warmup=1)
+    n = fields.shape[0]
+    fold_ms = median_ms(lambda: anchor.fold_anchor_grads(dpairs, abins, n), 7)
+    t = cfg.num_tiles(W, H)
+    kept = int(merge.k_used.sum())
+    nbytes = (fields.numel() * 4 + kept * (4 + 4 + 1) + t * 4
+              + H * W * 6 * 4 + kept * 36)
+    bound_ms, bound_by = bound("anchor_bwd", steps[2], steps[3], nbytes)
+    print("[11 anchor] kernel D vs plain twin after the fold: "
+          + "; ".join(f"{k}: p99 {v['p99']:.2e}, max {v['max']:.2e}, "
+                      f">1% {v['nbig']}/{v['n']}, "
+                      f"max_abs_err {v['max_abs_err']:.3e}"
+                      for k, v in findings.items())
+          + f"; bitwise repeatable; 1080p kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, fold {fold_ms:.3f} ms; pair-pixel steps "
+          f"{steps[2]} ({steps[3]} contributing), {nbytes} bytes: bound "
+          f"{bound_ms:.4f} ms by {bound_by}")
+    return {"max_abs_err": findings["1080p"]["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "fold_ms": fold_ms}
+
+
+def phase_render(dev, cloud, cfg, frames=5, ref=None):
+    """`render` for a few frames with cfg's binning; `ref` is the dup
+    path's frame to hold an anchor frame against (printed only)."""
+    is_anchor = cfg.binning == "anchor"
+    label, kernel = ("12 anchor", "C") if is_anchor else ("4 render", "A")
+    pairs, over = ((ANCHOR_PAIRS, ANCHOR_OVERFLOW) if is_anchor
+                   else (CPU_PAIRS, CPU_OVERFLOW))
     camera = bench_camera(W, H, dev)
     stages = {"projection": [], "binning": [], "composite": [], "frame": []}
     with torch.no_grad():
@@ -394,17 +586,24 @@ def phase_render(dev, cloud, cfg, frames=5):
             splats = project_gaussians(cloud, camera, W, H, cfg)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            bins = bin_splats(splats, W, H, cfg)
+            if is_anchor:
+                bins = anchor.bin_splats_anchor(splats, W, H, cfg)
+            else:
+                bins = bin_splats(splats, W, H, cfg)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            rasterize_tiles(splats, bins, W, H, cfg)
+            if is_anchor:
+                anchor_cuda.composite_image_anchor(
+                    pack_splat_fields(splats), bins, W, H, cfg)
+            else:
+                rasterize_tiles(splats, bins, W, H, cfg)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             stages["projection"].append((t1 - t0) * 1e3)
             stages["binning"].append((t2 - t1) * 1e3)
             stages["composite"].append((t3 - t2) * 1e3)
 
-        raster_cuda.launches = raster_cuda.launches_bwd = 0
+        reset_counts()
         for _ in range(frames):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -412,10 +611,9 @@ def phase_render(dev, cloud, cfg, frames=5):
             rgba = post_process(img, aux["alpha"], cfg)
             torch.cuda.synchronize()
             stages["frame"].append((time.perf_counter() - t0) * 1e3)
-        launches = raster_cuda.launches
-    check(launches == frames and raster_cuda.launches_bwd == 0,
-          f"render launched kernel A {launches} times, B "
-          f"{raster_cuda.launches_bwd} times in {frames} frames")
+        counts = launch_counts()
+    check(counts == {k: frames * (k == kernel) for k in counts},
+          f"render launched {counts} in {frames} frames")
     check(img.shape == (H, W, 3) and rgba.shape == (H, W, 4), "frame shape")
     check(bool(torch.isfinite(rgba).all()), "non-finite frame")
     mean = rgba[..., :3].mean().item()
@@ -423,21 +621,35 @@ def phase_render(dev, cloud, cfg, frames=5):
     check(mean > 1e-3 and covered > 0.05, f"black frame (mean {mean:.2e})")
     num_pairs = int(aux["num_pairs"])
     overflow = int(aux["overflow"])
-    check(abs(num_pairs - CPU_PAIRS) <= 1e-3 * CPU_PAIRS,
-          f"num_pairs {num_pairs} vs CPU {CPU_PAIRS}")
-    check(abs(overflow - CPU_OVERFLOW) <= 5,
-          f"overflow {overflow} vs CPU {CPU_OVERFLOW}")
+    check(abs(num_pairs - pairs) <= 1e-3 * pairs,
+          f"num_pairs {num_pairs} vs CPU {pairs}")
+    check(abs(overflow - over) <= 5, f"overflow {overflow} vs CPU {over}")
+    extra = ""
+    if is_anchor:
+        gx, gy = cfg.grid_size(W, H)
+        rng = anchor.tile_ranges(bins, gx, gy, cfg)
+        half = anchor.c_max(cfg) * anchor.KCL
+        trunc = int((rng.s1 > rng.base + half).sum())
+        check(abs(trunc - ANCHOR_TRUNCATED) <= 5,
+              f"{trunc} truncated (tile, range) covers vs CPU "
+              f"{ANCHOR_TRUNCATED}")
+        off = ((img - ref).abs().amax(-1) > ATOL).float().mean().item()
+        extra = (f", truncated (tile, range) covers {trunc} (CPU "
+                 f"{ANCHOR_TRUNCATED}), pixels off the dup frame by "
+                 f">{ATOL}: {off:.4e}")
     med = {k: statistics.median(v) for k, v in stages.items()}
-    print(f"[4 render] {frames} frames {W}x{H}, launches A={launches} "
-          f"B={raster_cuda.launches_bwd}, num_pairs={num_pairs} (CPU "
-          f"{CPU_PAIRS}), overflow={overflow} (CPU {CPU_OVERFLOW}), "
-          f"visible={int(aux['num_visible'])}, mean rgb {mean:.4f}, "
-          f"alpha>0.01 on {covered:.3f}; medians ms: "
+    print(f"[{label}] {frames} frames {W}x{H}, launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items())
+          + f", num_pairs={num_pairs} (CPU {pairs}), overflow={overflow} "
+          f"(CPU {over}), visible={int(aux['num_visible'])}, mean rgb "
+          f"{mean:.4f}, alpha>0.01 on {covered:.3f}{extra}; medians ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
+    return img
 
 
-def phase_step(dev, cloud, cfg, steps=7):
-    """Forward + backward through `render`, as a training step runs it."""
+def phase_step(dev, cloud, cfg, steps=7, label="5 step", kernels="AB"):
+    """Forward + backward through `render`, as a training step runs it;
+    `kernels` launch once per step and no other does."""
     camera = bench_camera(W, H, dev)
     leaves = {f: getattr(cloud, f).detach().clone().requires_grad_(True)
               for f in ("xyz", "log_scale", "quat", "opacity_logit", "sh")}
@@ -451,16 +663,16 @@ def phase_step(dev, cloud, cfg, steps=7):
 
     step()                                   # warm-up
     times = []
-    raster_cuda.launches = raster_cuda.launches_bwd = 0
+    reset_counts()
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    la, lb = raster_cuda.launches, raster_cuda.launches_bwd
-    check(la == steps and lb == steps,
-          f"{steps} fwd+bwd steps launched A {la} and B {lb} times")
+    counts = launch_counts()
+    check(counts == {k: steps * (k in kernels) for k in counts},
+          f"{steps} fwd+bwd steps launched {counts}")
     for name, t in leaves.items():
         check(t.grad is not None and bool(torch.isfinite(t.grad).all()),
               f"non-finite or missing gradient of {name}")
@@ -468,19 +680,21 @@ def phase_step(dev, cloud, cfg, steps=7):
                else float((v.grad != 0).float().mean())
                for k, v in leaves.items()}
     check(nonzero["opacity_logit"] > 0.5, f"gradients too sparse: {nonzero}")
-    print(f"[5 step] fwd+bwd through render at {W}x{H}: launches A={la} "
-          f"B={lb} in {steps} steps; median {statistics.median(times):.2f} "
+    print(f"[{label}] fwd+bwd through render at {W}x{H}: launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items())
+          + f" in {steps} steps; median {statistics.median(times):.2f} "
           f"ms (min {min(times):.2f}); rows with a gradient: "
           + ", ".join(f"{k} {v:.3f}" for k, v in nonzero.items()))
-    return {"A": la, "B": lb, "ms": statistics.median(times)}
+    return statistics.median(times)
 
 
-def phase_serve(dev, cloud, cfg):
+def phase_serve(dev, cloud, cfg, n_events=5, label="6 serve", kernel="A"):
     app = ViewerApp(cloud, 1280, 720, cfg, device=dev)
     events = [{"kind": "init"}, {"kind": "rotate", "dx": 0.3, "dy": 0.1},
               {"kind": "zoom", "d": -300}, {"kind": "pan", "dx": 0.05,
-                                            "dy": 0.02}, {"kind": "tick"}]
-    before = raster_cuda.launches
+                                            "dy": 0.02},
+              {"kind": "tick"}][:n_events]
+    reset_counts()
     sizes, times = [], []
     for ev in events[:3]:
         t0 = time.perf_counter()
@@ -495,12 +709,13 @@ def phase_serve(dev, cloud, cfg):
     for ev in events[3:]:                    # without the PNG encode
         frame, _ = app.handle_event(ev)
         check(frame.shape == (720, 1280, 4), f"{ev['kind']}: {frame.shape}")
-    rose = raster_cuda.launches - before
-    check(rose == len(events), f"serve launched kernel A {rose} times")
-    print(f"[6 serve] ViewerApp 1280x720 answered "
+    counts = launch_counts()
+    check(counts == {k: len(events) * (k == kernel) for k in counts},
+          f"serve launched {counts} in {len(events)} events")
+    print(f"[{label}] ViewerApp 1280x720 ({cfg.binning} binning) answered "
           + ", ".join(e["kind"] for e in events)
-          + f"; launches +{rose}; PNG bytes {sizes}; ms per encoded event "
-          + ", ".join(f"{t:.1f}" for t in times))
+          + f"; launches {kernel}={counts[kernel]}; PNG bytes {sizes}; ms per "
+          "encoded event " + ", ".join(f"{t:.1f}" for t in times))
 
 
 def run_cli(args, what):
@@ -540,7 +755,7 @@ def orbit_camera(i, n, w, h, radius=8.0):
                           center=(0, 0, 0))
 
 
-def phase_train(dev, cfg, iterations=30):
+def phase_train(dev, cfg, iterations=30, label="8 train", kernels="AB"):
     with torch.no_grad():
         target = make_scene(N_SCENE, seed=1, device=dev)
         views = []
@@ -561,16 +776,15 @@ def phase_train(dev, cfg, iterations=30):
         torch.cuda.synchronize()
         log.append((it, loss, alive, time.perf_counter()))
 
-    raster_cuda.launches = raster_cuda.launches_bwd = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, dstate = train(model, views, W, H, render_config=cfg, loop=loop,
                           on_log=on_log, device=dev)
     wall = time.perf_counter() - t0
-    la, lb = raster_cuda.launches, raster_cuda.launches_bwd
-    check(la == iterations and lb == iterations,
-          f"train launched A {la} and B {lb} times in {iterations} "
-          "iterations")
+    counts = launch_counts()
+    check(counts == {k: iterations * (k in kernels) for k in counts},
+          f"train launched {counts} in {iterations} iterations")
     losses = [x[1] for x in log]
     check(len(losses) == iterations and all(map(math.isfinite, losses)),
           f"losses: {losses}")
@@ -578,19 +792,24 @@ def phase_train(dev, cfg, iterations=30):
     check(last < first, f"loss did not fall: first five {first:.5f}, last "
           f"five {last:.5f}")
     alive = [x[2] for x in log]
-    check(alive[-1] != alive[0], f"alive count unchanged at {alive[0]}")
+    densified = iterations > loop.densify_from
+    check(alive[-1] != alive[0] or not densified,
+          f"alive count unchanged at {alive[0]}")
     for f in PARAMS:
         check(bool(torch.isfinite(getattr(state.model, f)).all()),
               f"non-finite {f} after training")
     per_it = [(b[3] - a[3]) * 1e3 for a, b in zip(log, log[1:])]
-    print(f"[8 train] {iterations} iterations at {W}x{H} from {N_SCENE} "
-          f"splats (arena {state.model.num_gaussians}), launches A={la} "
-          f"B={lb}; loss first five {first:.5f} → last five {last:.5f}; "
-          f"alive {alive[0]} → {alive[-1]} (densify at 20); ms/iteration "
+    print(f"[{label}] {iterations} iterations at {W}x{H} from {N_SCENE} "
+          f"splats (arena {state.model.num_gaussians}, {cfg.binning} "
+          "binning), launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items())
+          + f"; loss first five {first:.5f} → last five {last:.5f}; "
+          f"alive {alive[0]} → {alive[-1]}"
+          + (" (densify at 20)" if densified else "") + "; ms/iteration "
           f"median {statistics.median(per_it):.2f}, mean "
           f"{statistics.mean(per_it):.2f}; wall {wall:.1f} s incl. set-up; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"A": la, "B": lb, "ms_per_it": statistics.median(per_it)}
+    return counts
 
 
 def phase_cli_train(dev, cfg):
@@ -635,11 +854,13 @@ def phase_cli_train(dev, cfg):
 
 
 def main():
+    t_run = time.perf_counter()
     dev = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     cfg = RenderConfig()
+    cfg_a = RenderConfig(binning="anchor")
     with torch.no_grad():
         t0 = time.perf_counter()
         cloud = make_scene(N_SCENE, seed=0, sh_degree=3, device=dev)
@@ -648,16 +869,28 @@ def main():
         fwd, full = phase_kernel(dev, cloud, cfg)
         bwd = phase_backward(dev, cfg, full)
         del full
-        phase_render(dev, cloud, cfg)
+        frame = phase_render(dev, cloud, cfg)
+        afwd, afull = phase_anchor_kernel(dev, cloud, cfg_a)
+        abwd = phase_anchor_backward(dev, cfg_a, afull)
+        del afull
+        phase_render(dev, cloud, cfg_a, ref=frame)
     phase_step(dev, cloud, cfg)
+    phase_step(dev, cloud, cfg_a, label="13 anchor", kernels="CD")
     with torch.no_grad():
         phase_serve(dev, cloud, cfg)
+        phase_serve(dev, cloud, cfg_a, n_events=2, label="13 anchor",
+                    kernel="C")
     del cloud
     phase_cli_render()
     trained = phase_train(dev, cfg)
+    trained_a = phase_train(dev, cfg_a, iterations=10, label="14 anchor",
+                            kernels="CD")
     phase_cli_train(dev, cfg)
-    results = {"raster_fwd": fwd, "raster_bwd": bwd}
-    launches = {"raster_fwd": trained["A"], "raster_bwd": trained["B"]}
+    results = {"raster_fwd": fwd, "raster_bwd": bwd, "anchor_fwd": afwd,
+               "anchor_bwd": abwd}
+    launches = {"raster_fwd": trained["A"], "raster_bwd": trained["B"],
+                "anchor_fwd": trained_a["C"], "anchor_bwd": trained_a["D"]}
+    print(f"[wall] {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[name],

@@ -65,9 +65,11 @@ class RenderConfig:
     pack_mean16: bool = False
     pack_grads: bool = False
 
+    # --- binning architecture: 'dup' (kernels A, B) or 'anchor' (C, D) ---
+    binning: str = "dup"
+
     # --- TPU kernel selection and grid shape (ignored by the port) -------
     use_pallas: str = "auto"
-    binning: str = "dup"
     r_tiles: int = 8
     r_tiles_bwd: int = 1
     early_exit: bool = True
@@ -85,8 +87,6 @@ class RenderConfig:
              "ROADMAP §1 item 12"),
             (self.tile_cull, "tile_cull (ellipse-rect slot test)",
              "ROADMAP §1 item 12"),
-            (self.binning == "anchor", "binning='anchor'",
-             "ROADMAP §1 item 11"),
             (self.debug_selected >= 0, "debug_selected (splat highlight)",
              "ROADMAP §1 item 13"),
             (self.dtype not in ("float32", "f32"),

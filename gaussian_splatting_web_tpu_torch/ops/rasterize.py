@@ -28,7 +28,9 @@ onto the splats (`ops/pallas/raster.py::_fold_pair_grads`).
 
 `rasterize_tiles` goes through the differentiable compositor
 (`ops/cuda/raster.py::composite_image`): a CUDA tensor launches kernels A
-and B, a CPU tensor takes the plain twins.
+and B, a CPU tensor takes the plain twins. `bin_and_composite`, which
+`render` and the training step call, takes that path or the anchor
+binning's (`ops/anchor.py`, kernels C and D) by `config.binning`.
 """
 
 from __future__ import annotations
@@ -331,6 +333,23 @@ def rasterize_tiles(
                            config)
 
 
+def bin_and_composite(splats: ProjectedSplats, width: int, height: int,
+                      config: RenderConfig):
+    """Bin and composite by `config.binning`, differentiably → (Composite,
+    bins): 'dup' takes `bin_splats` and kernels A and B, 'anchor' takes
+    `ops/anchor.py::bin_splats_anchor` and kernels C and D (the plain
+    versions on the CPU). Both bins carry `num_pairs` and `overflow`."""
+    if config.binning == "anchor":
+        from .anchor import bin_splats_anchor
+        from .cuda.anchor import composite_image_anchor
+
+        bins = bin_splats_anchor(splats, width, height, config)
+        return composite_image_anchor(pack_splat_fields(splats), bins, width,
+                                      height, config), bins
+    bins = bin_splats(splats, width, height, config)
+    return rasterize_tiles(splats, bins, width, height, config), bins
+
+
 def render_impl(
     cloud: GaussianCloud,
     camera: CameraParams,
@@ -343,8 +362,7 @@ def render_impl(
     (image [H, W, 3], aux) with aux holding alpha and the binning counts."""
     camera = camera.to(cloud.device)
     splats = project_gaussians(cloud, camera, width, height, config)
-    bins = bin_splats(splats, width, height, config)
-    out = rasterize_tiles(splats, bins, width, height, config)
+    out, bins = bin_and_composite(splats, width, height, config)
 
     bg = torch.tensor(config.background, dtype=out.rgb.dtype,
                       device=out.rgb.device)

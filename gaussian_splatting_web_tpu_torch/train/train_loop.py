@@ -32,8 +32,7 @@ from ..core.types import CameraParams
 from ..io.dataset import View, scene_extent
 from ..models.gaussian_model import PARAMS, GaussianModel
 from ..ops.projection import project_gaussians
-from ..ops.rasterize import rasterize_tiles
-from ..ops.sort import bin_splats
+from ..ops.rasterize import bin_and_composite
 from .densify import (
     DensifyState,
     accumulate_stats,
@@ -126,8 +125,7 @@ def make_densify_train_step(width: int, height: int, config: RenderConfig,
         vs_aux = torch.zeros((model.num_gaussians, 2), dtype=torch.float32,
                              device=dev, requires_grad=True)
         splats = dataclasses.replace(splats, mean2d=splats.mean2d + vs_aux)
-        bins = bin_splats(splats, width, height, config)
-        out = rasterize_tiles(splats, bins, width, height, config)
+        out, _ = bin_and_composite(splats, width, height, config)
         bg = torch.tensor(config.background, dtype=out.rgb.dtype, device=dev)
         img = out.rgb + (1.0 - out.alpha[..., None]) * bg
         loss = photometric_loss(img, target, lambda_dssim)

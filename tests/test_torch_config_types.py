@@ -52,12 +52,30 @@ def test_config_defaults_equal_except_exact_mode():
 
 @pytest.mark.parametrize("field,value", [
     ("depth_bits", 19), ("tier_split", 2), ("pack_fields", True),
-    ("binning", "anchor"), ("tile_cull", True), ("debug_selected", 0),
-    ("dtype", "bfloat16"),
+    ("tile_cull", True), ("debug_selected", 0), ("dtype", "bfloat16"),
 ])
 def test_config_rejects_unported_modes(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RenderConfig(**{field: value})
+
+
+@pytest.mark.parametrize("max_per_tile", [256, 300, 1024])
+def test_config_anchor_binning_converts_to_jax(max_per_tile):
+    """binning='anchor' is ported (kernels C and D); its caps follow
+    max_per_tile as in the JAX package, and the packed anchor mode stays
+    refused."""
+    from gaussian_splatting_web_tpu.ops.pallas.anchor import _c_max
+    from gaussian_splatting_web_tpu.ops.pallas.raster import k_cap_for
+    from gaussian_splatting_web_tpu_torch.ops import anchor
+
+    port = RenderConfig(binning="anchor", max_per_tile=max_per_tile)
+    ref = JaxConfig(**dataclasses.asdict(port))
+    assert ref == JaxConfig(binning="anchor", max_per_tile=max_per_tile,
+                            **EXACT_MODE)
+    assert anchor.c_max(port) == _c_max(ref)
+    assert anchor.k_cap(port) == k_cap_for(ref)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RenderConfig(binning="anchor", pack_fields=True)
 
 
 def test_cloud_numpy_roundtrip():
@@ -97,6 +115,8 @@ def test_port_imports_no_jax():
         "gaussian_splatting_web_tpu_torch.io",
         "gaussian_splatting_web_tpu_torch.io.dataset",
         "gaussian_splatting_web_tpu_torch.io.ply",
+        "gaussian_splatting_web_tpu_torch.ops.anchor",
+        "gaussian_splatting_web_tpu_torch.ops.cuda.anchor",
         "gaussian_splatting_web_tpu_torch.models.gaussian_model",
         "gaussian_splatting_web_tpu_torch.ops.composite",
         "gaussian_splatting_web_tpu_torch.ops.cuda.build",

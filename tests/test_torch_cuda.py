@@ -195,3 +195,122 @@ def test_train_step_launches_each_kernel_once(device):
     torch.cuda.synchronize()
     assert raster_cuda.launches == raster_cuda.launches_bwd == 3
     assert all(np.isfinite(losses)) and state.step == 3
+
+
+# --- kernels C and D (anchor binning) -------------------------------------
+
+ACFG = CFG.replace(binning="anchor")
+
+
+def _crowded_scene():
+    """2500 small splats over the central tiles: ranges overrun their
+    aligned cover and tiles hold more than k_cap candidates."""
+    cloud = make_scene(2500, seed=9, sh_degree=0,
+                       log_scale_range=(-3.5, -1.5), device="cpu")
+    cloud.xyz = cloud.xyz * 0.15
+    return cloud
+
+
+def _anchor_vs_plain(cloud, w, h, dev, cfg=ACFG):
+    """Kernel C against its plain version (image rule, identical ordered
+    lists), then D against its plain version after the fold (gradient
+    rule), D bitwise repeatable."""
+    from gaussian_splatting_web_tpu_torch.ops import anchor
+    from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
+
+    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    splats = project_gaussians(cloud.to(dev), camera.to(dev), w, h, cfg)
+    abins = anchor.bin_splats_anchor(splats, w, h, cfg)
+    fields = pack_splat_fields(splats)
+    got, merge = anchor_cuda.composite_anchor(fields, abins, w, h, cfg)
+    want, want_merge = anchor.composite_anchor_plain(fields, abins, w, h, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(merge, want_merge):
+        assert torch.equal(a, b)
+    img = torch.cat([got.rgb, got.alpha[..., None]], -1)
+    ref = torch.cat([want.rgb, want.alpha[..., None]], -1)
+    bad = (img - ref).abs().amax(-1) > ATOL
+    assert bad.float().mean().item() <= MAX_BAD_FRAC, int(bad.sum())
+    assert (got.final_log_t - want.final_log_t).abs()[~bad].max() <= 1e-4
+
+    gen = torch.Generator().manual_seed(0)
+    d_rgb = torch.randn((h, w, 3), generator=gen).to(dev)
+    d_alpha = torch.randn((h, w), generator=gen).to(dev)
+    dp = anchor_cuda.composite_anchor_backward(fields, abins, w, h, cfg, got,
+                                               merge, d_rgb, d_alpha)
+    again = anchor_cuda.composite_anchor_backward(fields, abins, w, h, cfg,
+                                                  got, merge, d_rgb, d_alpha)
+    dp_plain = anchor.composite_anchor_backward_plain(
+        fields, abins, w, h, cfg, got, d_rgb, d_alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(dp, again)
+    n = fields.shape[0]
+    g_got = anchor.fold_anchor_grads(dp, abins, n)
+    g_want = anchor.fold_anchor_grads(dp_plain, abins, n)
+    assert torch.isfinite(g_got).all() and g_want.abs().max() > 0
+    assert grad_parity_ok(grad_parity(g_got.T, g_want.T), extra=2)
+    return abins, merge
+
+
+@pytest.mark.parametrize("scene", ["random", "opaque", "crowded"])
+def test_anchor_kernels_match_plain(device, scene):
+    from gaussian_splatting_web_tpu_torch.ops import anchor
+
+    cloud = {"random": lambda: _scene(0), "crowded": _crowded_scene,
+             "opaque": lambda: _scene(5, n=40, opaque=True)}[scene]()
+    abins, merge = _anchor_vs_plain(cloud, 64, 48, device)
+    if scene == "crowded":
+        rng = anchor.tile_ranges(abins, 4, 3, ACFG)
+        half = anchor.c_max(ACFG) * anchor.KCL
+        assert int((rng.s1 - rng.base).max()) > half
+        assert int(merge.k_used.max()) == anchor.k_cap(ACFG)
+
+
+def test_anchor_grads_flow_through_kernels(device):
+    """render with binning='anchor' on the card: C forward and D backward
+    once each, none of A or B, and the parameter gradients agree with the
+    CPU path's."""
+    from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
+
+    cpu = _scene(0)
+    camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
+    grads = []
+    for dev in (torch.device("cpu"), device):
+        cloud = GaussianCloud(**{
+            f: getattr(cpu, f).clone().to(dev).requires_grad_(True)
+            for f in FIELDS})
+        raster_cuda.launches = raster_cuda.launches_bwd = 0
+        anchor_cuda.launches = anchor_cuda.launches_bwd = 0
+        img, _ = render(cloud, camera, 64, 48, ACFG)
+        (img * img).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        want = 1 if dev.type == "cuda" else 0
+        assert anchor_cuda.launches == anchor_cuda.launches_bwd == want
+        assert raster_cuda.launches == raster_cuda.launches_bwd == 0
+        grads.append([getattr(cloud, f).grad for f in FIELDS])
+    for g in grads[1]:
+        assert torch.isfinite(g).all()
+    assert grad_parity_ok(grad_parity(grads[1], grads[0]), extra=2)
+
+
+def test_anchor_kernel_shared_memory_caps(device):
+    """A cap whose merge keys need more than 48 KB of shared memory takes
+    the opt-in (max_per_tile=2048: 8,192 keys, 74.7 KB) and still matches
+    the plain version; one past the 227 KB a block can hold is refused."""
+    from gaussian_splatting_web_tpu_torch.ops import anchor
+    from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
+
+    cfg = ACFG.replace(max_per_tile=2048)
+    assert anchor_cuda.merge_smem_bytes(cfg) > 48 * 1024
+    _, merge = _anchor_vs_plain(_crowded_scene(), 64, 48, device, cfg=cfg)
+    assert int(merge.k_used.max()) == anchor.k_cap(cfg)
+
+    big = ACFG.replace(max_per_tile=8192)
+    camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
+    splats = project_gaussians(_scene(0).to(device), camera.to(device), 64,
+                               48, big)
+    abins = anchor.bin_splats_anchor(splats, 64, 48, big)
+    with pytest.raises(ValueError, match="shared memory"):
+        anchor_cuda.composite_anchor(pack_splat_fields(splats), abins, 64,
+                                     48, big)
