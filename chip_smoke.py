@@ -14,11 +14,18 @@ printing one line; any failure raises and exits non-zero:
   1 build    nvcc builds csrc/raster_fwd.cu and csrc/raster_bwd.cu, one
              process each, started together
   2 kernel   kernel A vs its plain PyTorch twin on the same bins: an
-             opaque early-exit scene, a 72x40 ragged frame, and the full
-             1080p frame (timed, CUDA events, median of 7 after warm-up)
-  3 bwd      kernel B vs its plain twin on the same three scenes, after
-             the fold (the gradient-parity gate below); B, its twin and
-             the fold timed at 1080p
+             opaque early-exit scene, a 72x40 ragged frame, a 96x64
+             adversarial scene (`bench_lib.make_adversarial_scene`:
+             needles, centres off the frame, opacities at the cutoff,
+             sub-pixel splats, splats past max_dup) and the full 1080p
+             frame; on each, the footprint cull's plain mirror against
+             the twin's power (no culled step may pass the cutoff; the
+             culled share is printed); A timed at 1080p alone and
+             through its wrapper
+  3 bwd      kernel B vs its plain twin on the same four scenes, after
+             the fold (the gradient-parity gate below), bitwise
+             repeatable on each; B alone, B through its wrapper, its twin
+             and the fold timed at 1080p
   4 render   `render` for a few frames: one kernel A launch per frame, a
              finite non-black image, pair and shrink counts against the
              JAX package's CPU figures; per-stage medians
@@ -38,14 +45,15 @@ printing one line; any failure raises and exits non-zero:
 The anchor-binning path (`RenderConfig(binning="anchor")`, kernels C and D,
 default caps: 1,536-position covers, k_cap 1024):
 
- 10 anchor   kernel C vs its plain twin on the same anchor bins: the opaque
-             and ragged scenes, a crowded 64x48 scene whose ranges overrun
-             their cover and whose tiles hold more than k_cap candidates,
-             and 1080p; identical ordered lists, the image rule; C and its
-             twin timed at 1080p
+ 10 anchor   kernel C vs its plain twin on the same anchor bins: the opaque,
+             ragged and adversarial scenes, a crowded 64x48 scene whose
+             ranges overrun their cover and whose tiles hold more than
+             k_cap candidates, and 1080p; identical ordered lists, the
+             image rule; C alone, through its wrapper and its twin timed at
+             1080p
  11 anchor   kernel D vs its plain twin after the fold on the same scenes
-             (the gradient rule), bitwise repeatable; D, its twin and the
-             fold timed at 1080p
+             (the gradient rule), bitwise repeatable; D alone, through its
+             wrapper, its twin and the fold timed at 1080p
  12 anchor   `render` at 1080p for a few frames: one C launch per frame, no
              A or B; entries, overflow and truncated ranges against the JAX
              package's CPU figures; per-stage medians; the share of pixels
@@ -63,17 +71,32 @@ residual log-transmittance agrees to 1e-4. Gradient rule
 elements plus 2 off by more than 1%. TF32 is switched off for matmuls and
 cuDNN so the plain twins and SSIM compute in full f32.
 
+Kernel times: "kernel" is the launch alone (`prepare_*` does the checks
+and allocations first; CUDA events around 5 back-to-back launches, divided
+by 5, median of 7 samples after warm-up; A's and B's launches include
+their one-block tile-schedule kernel), the time in the JSON line;
+"wrapper" is the whole wrapper call (checks, allocations, launch) between
+CUDA events, median of 7; the plain twins are timed that way too. C and D
+are timed with the same helpers.
+
 Each kernel's bound is the larger of its bytes (each input read once, each
-output written once) over 3.35 TB/s and its operations on this run's data
-over the card's peak: FP32 operations over 67 TFLOP/s, and exp/log1p/
-reciprocal over the special-function units (16 per SM per clock, 132 SMs,
-1.98 GHz). Pair-pixel steps are counted from this run's bins: kernels A
-and C walk each pixel up to its early exit, B and D up to its last
-contributing pair; C and D count as A and B per step over the ordered
-lists. C's bytes add its merge's union loads (5 bytes per position read,
-every tile's two covers) and its ordered-list outputs; its sort's compares
-are not counted as operations. D's bytes count the ordered lists it reads
-and the rows it writes (36 bytes per kept pair), not the zeroed array.
+output written once) over 3.35 TB/s and the operations this run's data
+needs over the card's peak: FP32 operations over 67 TFLOP/s, and exp/
+log1p/reciprocal/sqrt over the special-function units (16 per SM per
+clock, 132 SMs, 1.98 GHz). The operations needed are the pair-pixel steps
+that pass the cutoff, each at a step's full cost, plus one footprint test
+per (pair, tile) that some pixel of the tile walks to: a step that cannot
+pass does no work, and the footprint test rules it out. Steps are counted
+from this run's bins: kernels A and C walk each pixel up to its early
+exit, B and D up to its last contributing pair; C and D count as A and B
+over the ordered lists. Printed beside it, the "step bound" charges a
+power evaluation to every walked step, passing or not (the definition the
+port's first kernels were measured against, kept so shares compare across
+records). C's bytes add its merge's union loads (5 bytes per position
+read, every tile's two covers) and its ordered-list outputs; its sort's
+compares are not counted as operations. D's bytes count the ordered lists
+it reads and the rows it writes (36 bytes per kept pair), not the zeroed
+array.
 
 Prints the card line, a JSON line of kernel results, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -96,6 +119,7 @@ import torch
 from gaussian_splatting_web_tpu_torch.bench_lib import (
     grad_parity,
     grad_parity_ok,
+    make_adversarial_scene,
     make_scene,
 )
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
@@ -168,6 +192,9 @@ PASS_FP32 = {"raster_fwd": 12, "raster_bwd": 35, "anchor_fwd": 12,
              "anchor_bwd": 35}
 PASS_SFU = {"raster_fwd": 3, "raster_bwd": 4, "anchor_fwd": 3,
             "anchor_bwd": 4}
+# one footprint test (csrc/footprint.cuh): 27 mul, 22 add, 36 compares and
+# 6 abs in FP32; two divisions and two square roots on the SFUs
+FOOT_FP32, FOOT_SFU = 91, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -190,8 +217,9 @@ def reset_counts():
     anchor_cuda.launches = anchor_cuda.launches_bwd = 0
 
 
-def median_ms(fn, runs, warmup=2):
-    """Median device time of fn() in ms, CUDA events around each run."""
+def median_ms(fn, runs, warmup=2, repeat=1):
+    """Median device time of fn() in ms: CUDA events around `repeat`
+    back-to-back runs, divided by `repeat`, median of `runs` samples."""
     for _ in range(warmup):
         fn()
     times = []
@@ -199,11 +227,19 @@ def median_ms(fn, runs, warmup=2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(repeat):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / repeat)
     return statistics.median(times)
+
+
+def kernel_ms(prepared):
+    """Device time of one launch alone, in ms: `prepared` is what a
+    wrapper's `prepare_*` returns, (run, outputs, ...), its checks and
+    allocations done, so the window holds launches only."""
+    return median_ms(prepared[0], 7, repeat=5)
 
 
 def compare(got, want, what):
@@ -238,8 +274,9 @@ def binned(cloud, camera, w, h, cfg):
 
 
 def small_scenes(dev):
-    """An opaque stack (every central pixel exits early) and a ragged
-    72x40 frame: (name, cloud, width, height, eye z)."""
+    """An opaque stack (every central pixel exits early), a ragged 72x40
+    frame and the adversarial scene of the footprint cull: (name, cloud,
+    width, height, eye z)."""
     rng = np.random.default_rng(7)
     n = 40
     opaque = make_scene(n, seed=5, sh_degree=0, device=dev)
@@ -250,14 +287,17 @@ def small_scenes(dev):
     opaque.log_scale = torch.full((n, 3), -0.7, device=dev)
     small = make_scene(2000, seed=3, sh_degree=3, device=dev)
     return [("opaque 48x48", opaque, 48, 48, -6.0),
-            ("ragged 72x40", small, 72, 40, -8.0)]
+            ("ragged 72x40", small, 72, 40, -8.0),
+            ("adversarial 96x64", make_adversarial_scene(device=dev), 96, 64,
+             -6.0)]
 
 
 def work(fields, bins, comp, w, h, cfg):
-    """Pair-pixel steps of this frame: (A steps, A steps past the cutoff,
-    B steps, B steps past the cutoff). A walks each pixel up to and
-    including its early-exit pair (the whole segment if it never
-    saturates); B walks each pixel up to its last contributing pair."""
+    """Pair-pixel steps of this frame, for A and B: `steps` walked, of
+    which `passed` pass the cutoff, and the (pair, tile)s some pixel of
+    the tile walks to, `pairs`. A walks each pixel up to and including its
+    early-exit pair (the whole segment if it never saturates); B walks
+    each pixel up to its last contributing pair."""
     gx, gy = cfg.grid_size(w, h)
     ts = cfg.tile_size
     dev = fields.device
@@ -267,7 +307,7 @@ def work(fields, bins, comp, w, h, cfg):
     last = rasterize.tile_major(comp.last_idx[..., None], gx, gy, ts,
                                 fill=-1)[..., 0]
     log_eps = math.log(cfg.transmittance_eps)
-    totals = torch.zeros(4, dtype=torch.float64, device=dev)
+    totals = torch.zeros(6, dtype=torch.float64, device=dev)
     starts, counts, spans = rasterize._chunks(bins, tile_ids, cfg)
     with torch.no_grad():
         for sl, k_len in spans:
@@ -283,18 +323,36 @@ def work(fields, bins, comp, w, h, cfg):
             to_last = k[None, :, None] <= last[sl][:, None, :]
             a = live & walked
             b = live & to_last
-            totals += torch.stack([a.sum(), (a & passed).sum(), b.sum(),
-                                   (b & passed).sum()]).double()
-    return [int(v) for v in totals.tolist()]
+            totals += torch.stack([
+                a.sum(), (a & passed).sum(), a.any(-1).sum(), b.sum(),
+                (b & passed).sum(), b.any(-1).sum()]).double()
+    v = [int(x) for x in totals.tolist()]
+    return {"A": dict(steps=v[0], passed=v[1], pairs=v[2]),
+            "B": dict(steps=v[3], passed=v[4], pairs=v[5])}
 
 
-def bound(name, steps, passed, nbytes):
-    """(bound_ms, bound_by) from bytes and this run's operations."""
-    flops = steps * STEP_FP32 + passed * PASS_FP32[name]
-    ops_s = max(flops / FP32_FLOPS_S, passed * PASS_SFU[name] / SFU_OPS_S)
+def bound(name, w, nbytes):
+    """(bound_ms, bound_by, step_bound_ms) for the work `w` (one kernel's
+    entry of `work`) and `nbytes`: the bound counts the passing steps at
+    full cost and one footprint test per pair; the step bound counts a
+    power evaluation at every walked step."""
+    flops = (w["passed"] * (STEP_FP32 + PASS_FP32[name])
+             + w["pairs"] * FOOT_FP32)
+    sfu = w["passed"] * PASS_SFU[name] + w["pairs"] * FOOT_SFU
+    ops_s = max(flops / FP32_FLOPS_S, sfu / SFU_OPS_S)
     bytes_s = nbytes / HBM_BYTES_S
-    return max(ops_s, bytes_s) * 1e3, ("bytes" if bytes_s >= ops_s
-                                       else "operations")
+    step_flops = w["steps"] * STEP_FP32 + w["passed"] * PASS_FP32[name]
+    step_s = max(step_flops / FP32_FLOPS_S,
+                 w["passed"] * PASS_SFU[name] / SFU_OPS_S, bytes_s)
+    return (max(ops_s, bytes_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", step_s * 1e3)
+
+
+def work_line(w, nbytes, bound_ms, bound_by, step_ms, passing="past the "
+              "cutoff"):
+    return (f"pair-pixel steps {w['steps']} ({w['passed']} {passing}), "
+            f"(pair, tile)s walked {w['pairs']}, {nbytes} bytes: bound "
+            f"{bound_ms:.4f} ms by {bound_by}, step bound {step_ms:.4f} ms")
 
 
 def phase_device():
@@ -328,6 +386,15 @@ def phase_build():
           + "; ".join(parts))
 
 
+def cull_check(fields, bins, w, h, cfg, what):
+    """The footprint cull's plain mirror against the twin's power: no
+    culled step passes the cutoff → the culled share of the live steps."""
+    stats = raster_cuda.cull_stats(fields, bins, w, h, cfg)
+    check(stats["missed"] == 0, f"{what}: the cull skips {stats['missed']} "
+          "steps whose power passes the cutoff")
+    return stats["culled"] / max(stats["steps"], 1)
+
+
 def phase_kernel(dev, cloud, cfg):
     findings = {}
     for what, scene, w, h, z in small_scenes(dev):
@@ -336,16 +403,22 @@ def phase_kernel(dev, cloud, cfg):
         got = raster_cuda.composite_image(fields, bins, w, h, cfg)
         want = composite_image_plain(fields, bins, w, h, cfg)
         findings[what] = compare(got, want, what)
+        findings[what]["culled"] = cull_check(fields, bins, w, h, cfg, what)
         if what.startswith("opaque"):
             check(bool((got.alpha > 0.999).any()), "opaque scene: no pixel "
                   "saturated, the early exit was not exercised")
+        if what.startswith("adversarial"):
+            check(int(bins.overflow) > 0, "adversarial scene: no splat "
+                  "reached max_dup")
 
     camera = bench_camera(W, H, dev)
     fields, bins = binned(cloud, camera, W, H, cfg)
     got = raster_cuda.composite_image(fields, bins, W, H, cfg)
     want = composite_image_plain(fields, bins, W, H, cfg)
     full = compare(got, want, "1080p")
-    ms = median_ms(
+    full["culled"] = cull_check(fields, bins, W, H, cfg, "1080p")
+    ms = kernel_ms(raster_cuda.prepare_fwd(fields, bins, W, H, cfg))
+    wrapper_ms = median_ms(
         lambda: raster_cuda.composite_image(fields, bins, W, H, cfg), 7)
     plain_ms = median_ms(
         lambda: composite_image_plain(fields, bins, W, H, cfg), 7, warmup=1)
@@ -354,28 +427,34 @@ def phase_kernel(dev, cloud, cfg):
     t = cfg.num_tiles(W, H)
     nbytes = (fields.numel() * 4 + bins.sorted_gidx.numel() * 4 + t * 8
               + H * W * 6 * 4)
-    bound_ms, bound_by = bound("raster_fwd", steps[0], steps[1], nbytes)
+    bound_ms, bound_by, step_ms = bound("raster_fwd", steps["A"], nbytes)
     print(f"[2 kernel] kernel A vs plain twin: "
           + "; ".join(f"{k}: max_abs_err {v['max_abs_err']:.3e}, "
                       f">{ATOL} on {v['bad_frac']:.2e}, "
                       f"log-T err {v['log_t_err']:.2e}, "
-                      f"last-idx diff {v['last_idx_frac']:.2e}"
+                      f"last-idx diff {v['last_idx_frac']:.2e}, "
+                      f"culled {v['culled']:.4f} of the steps, 0 passing"
                       for k, v in findings.items())
-          + f"; 1080p kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-          f"pair-pixel steps {steps[0]} ({steps[1]} past the cutoff), "
-          f"{nbytes} bytes: bound {bound_ms:.4f} ms by {bound_by}")
+          + f"; 1080p kernel {ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; "
+          + work_line(steps["A"], nbytes, bound_ms, bound_by, step_ms))
     return {"max_abs_err": full["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}, (fields, bins, got,
-                                                        steps)
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}, (fields, bins, got, steps)
 
 
 def backward_vs_plain(fields, bins, fwd, w, h, cfg, what):
+    """Kernel B against its plain twin after the fold (the gradient
+    rule), and B run twice on the same inputs gives the same bits."""
     gen = torch.Generator(device=fields.device).manual_seed(0)
     d_rgb = torch.randn((h, w, 3), generator=gen, device=fields.device)
     d_alpha = torch.randn((h, w), generator=gen, device=fields.device)
     got = raster_cuda.composite_backward(fields, bins, w, h, cfg, fwd,
                                          d_rgb, d_alpha)
+    again = raster_cuda.composite_backward(fields, bins, w, h, cfg, fwd,
+                                           d_rgb, d_alpha)
+    check(torch.equal(got, again), f"{what}: kernel B is not deterministic")
     want = composite_backward_plain(fields, bins, w, h, cfg, fwd, d_rgb,
                                     d_alpha)
     n = fields.shape[0]
@@ -402,31 +481,32 @@ def phase_backward(dev, cfg, full):
     stats, (d_rgb, d_alpha, dpairs) = backward_vs_plain(
         fields, bins, fwd, W, H, cfg, "1080p")
     findings["1080p"] = stats
-    ms = median_ms(lambda: raster_cuda.composite_backward(
+    ms = kernel_ms(raster_cuda.prepare_bwd(fields, bins, W, H, cfg, fwd,
+                                           d_rgb, d_alpha))
+    wrapper_ms = median_ms(lambda: raster_cuda.composite_backward(
         fields, bins, W, H, cfg, fwd, d_rgb, d_alpha), 7)
     plain_ms = median_ms(lambda: composite_backward_plain(
         fields, bins, W, H, cfg, fwd, d_rgb, d_alpha), 7, warmup=1)
     n = fields.shape[0]
     fold_ms = median_ms(lambda: fold_pair_grads(dpairs, bins, n), 7)
-    again = raster_cuda.composite_backward(fields, bins, W, H, cfg, fwd,
-                                           d_rgb, d_alpha)
-    check(torch.equal(again, dpairs), "kernel B is not deterministic")
     t = cfg.num_tiles(W, H)
     nbytes = (fields.numel() * 4 + bins.sorted_gidx.numel() * 4 + t * 8
               + H * W * 6 * 4 + dpairs.numel() * 4)
-    bound_ms, bound_by = bound("raster_bwd", steps[2], steps[3], nbytes)
-    print("[3 bwd] kernel B vs plain twin after the fold: "
+    bound_ms, bound_by, step_ms = bound("raster_bwd", steps["B"], nbytes)
+    print("[3 bwd] kernel B vs plain twin after the fold, bitwise "
+          "repeatable on each scene: "
           + "; ".join(f"{k}: p99 {v['p99']:.2e}, max {v['max']:.2e}, "
                       f">1% {v['nbig']}/{v['n']}, "
                       f"max_abs_err {v['max_abs_err']:.3e}"
                       for k, v in findings.items())
-          + f"; 1080p kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"fold {fold_ms:.3f} ms, bitwise repeatable; pair-pixel steps "
-          f"{steps[2]} ({steps[3]} contributing), {nbytes} bytes: bound "
-          f"{bound_ms:.4f} ms by {bound_by}")
+          + f"; 1080p kernel {ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, fold {fold_ms:.3f} ms; "
+          + work_line(steps["B"], nbytes, bound_ms, bound_by, step_ms,
+                      "contributing"))
     return {"max_abs_err": findings["1080p"]["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "fold_ms": fold_ms}
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "fold_ms": fold_ms}
 
 
 def crowded_scene(dev):
@@ -476,7 +556,8 @@ def phase_anchor_kernel(dev, cloud, cfg):
     fields, abins = anchor_binned(cloud, camera, W, H, cfg)
     findings["1080p"], got, merge = anchor_vs_plain(fields, abins, W, H, cfg,
                                                     "1080p")
-    ms = median_ms(
+    ms = kernel_ms(anchor_cuda.prepare_fwd(fields, abins, W, H, cfg))
+    wrapper_ms = median_ms(
         lambda: anchor_cuda.composite_anchor(fields, abins, W, H, cfg), 7)
     plain_ms = median_ms(
         lambda: anchor.composite_anchor_plain(fields, abins, W, H, cfg), 7,
@@ -491,21 +572,21 @@ def phase_anchor_kernel(dev, cloud, cfg):
     kept = int(merge.k_used.sum())
     nbytes = (fields.numel() * 4 + (t + 1) * 4 + union * 5 + kept * 4
               + H * W * 6 * 4 + t * kc * 5 + t * 4)
-    bound_ms, bound_by = bound("anchor_fwd", steps[0], steps[1], nbytes)
+    bound_ms, bound_by, step_ms = bound("anchor_fwd", steps["A"], nbytes)
     print(f"[10 anchor] kernel C vs plain twin: "
           + "; ".join(f"{k}: max_abs_err {v['max_abs_err']:.3e}, "
                       f">{ATOL} on {v['bad_frac']:.2e}, "
                       f"log-T err {v['log_t_err']:.2e}, "
                       f"last-idx diff {v['last_idx_frac']:.2e}"
                       for k, v in findings.items())
-          + f"; ordered lists identical; 1080p kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; union positions read {union}, kept pairs "
-          f"{kept}; pair-pixel steps {steps[0]} ({steps[1]} past the "
-          f"cutoff), {nbytes} bytes: bound {bound_ms:.4f} ms by {bound_by}")
+          + f"; ordered lists identical; 1080p kernel {ms:.3f} ms, wrapper "
+          f"{wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms; union positions "
+          f"read {union}, kept pairs {kept}; "
+          + work_line(steps["A"], nbytes, bound_ms, bound_by, step_ms))
     return {"max_abs_err": findings["1080p"]["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}, (fields, abins, got,
-                                                        merge, steps)
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}, (fields, abins, got, merge, steps)
 
 
 def anchor_backward_vs_plain(fields, abins, fwd, merge, w, h, cfg, what):
@@ -545,7 +626,9 @@ def phase_anchor_backward(dev, cfg, full):
     stats, (d_rgb, d_alpha, dpairs) = anchor_backward_vs_plain(
         fields, abins, fwd, merge, W, H, cfg, "1080p")
     findings["1080p"] = stats
-    ms = median_ms(lambda: anchor_cuda.composite_anchor_backward(
+    ms = kernel_ms(anchor_cuda.prepare_bwd(fields, abins, W, H, cfg, fwd,
+                                           merge, d_rgb, d_alpha))
+    wrapper_ms = median_ms(lambda: anchor_cuda.composite_anchor_backward(
         fields, abins, W, H, cfg, fwd, merge, d_rgb, d_alpha), 7)
     plain_ms = median_ms(lambda: anchor.composite_anchor_backward_plain(
         fields, abins, W, H, cfg, fwd, d_rgb, d_alpha), 7, warmup=1)
@@ -555,19 +638,21 @@ def phase_anchor_backward(dev, cfg, full):
     kept = int(merge.k_used.sum())
     nbytes = (fields.numel() * 4 + kept * (4 + 4 + 1) + t * 4
               + H * W * 6 * 4 + kept * 36)
-    bound_ms, bound_by = bound("anchor_bwd", steps[2], steps[3], nbytes)
+    bound_ms, bound_by, step_ms = bound("anchor_bwd", steps["B"], nbytes)
     print("[11 anchor] kernel D vs plain twin after the fold: "
           + "; ".join(f"{k}: p99 {v['p99']:.2e}, max {v['max']:.2e}, "
                       f">1% {v['nbig']}/{v['n']}, "
                       f"max_abs_err {v['max_abs_err']:.3e}"
                       for k, v in findings.items())
-          + f"; bitwise repeatable; 1080p kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, fold {fold_ms:.3f} ms; pair-pixel steps "
-          f"{steps[2]} ({steps[3]} contributing), {nbytes} bytes: bound "
-          f"{bound_ms:.4f} ms by {bound_by}")
+          + f"; bitwise repeatable; 1080p kernel {ms:.3f} ms, wrapper "
+          f"{wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, fold "
+          f"{fold_ms:.3f} ms; "
+          + work_line(steps["B"], nbytes, bound_ms, bound_by, step_ms,
+                      "contributing"))
     return {"max_abs_err": findings["1080p"]["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "fold_ms": fold_ms}
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "fold_ms": fold_ms}
 
 
 def phase_render(dev, cloud, cfg, frames=5, ref=None):

@@ -39,6 +39,45 @@ def make_scene(n, seed=0, sh_degree=3, log_scale_range=(-6.0, -4.0),
     return GaussianCloud.from_numpy(arrays, device=device)
 
 
+def make_adversarial_scene(seed=11, device="cuda") -> GaussianCloud:
+    """Splats at the edges of the compositor kernels' footprint cull, for
+    a 96x64 frame seen from eye (0, 0, -6): very anisotropic needles,
+    centres outside the frame whose footprints reach into it, opacities
+    just above the 1/255 cutoff (logit(1/255) = -ln 254 ≈ -5.537, some
+    exactly there), sub-pixel splats, and splats wide enough to cover
+    more than `max_dup` = 16 of the frame's 24 tiles."""
+    rng = np.random.default_rng(seed)
+    groups = []
+
+    def group(n, xy, z, log_scale, logit):
+        q = rng.normal(size=(n, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        groups.append((np.concatenate([xy, z], 1), log_scale, q, logit))
+
+    needle = rng.uniform(-5.0, -4.0, size=(60, 3))
+    needle[np.arange(60), rng.integers(0, 3, 60)] = rng.uniform(0.0, 0.5, 60)
+    group(60, rng.normal(scale=1.5, size=(60, 2)), rng.uniform(-1, 1, (60, 1)),
+          needle, rng.uniform(-3, 2, 60))
+    side = rng.choice([-1.0, 1.0], size=(40, 2))
+    group(40, side * rng.uniform([6.0, 4.0], [9.0, 6.0], (40, 2)),
+          rng.uniform(-1, 1, (40, 1)), rng.uniform(0.0, 0.7, (40, 3)),
+          rng.uniform(-1, 3, 40))
+    logit = rng.uniform(-np.log(254.0), -5.4, 40)
+    logit[:8] = -np.log(254.0)
+    group(40, rng.normal(scale=1.5, size=(40, 2)), rng.uniform(-1, 1, (40, 1)),
+          rng.uniform(-3.0, -1.5, (40, 3)), logit)
+    group(40, rng.normal(scale=1.5, size=(40, 2)), rng.uniform(-1, 1, (40, 1)),
+          rng.uniform(-7.0, -6.0, (40, 3)), rng.uniform(1, 4, 40))
+    group(10, rng.normal(scale=1.0, size=(10, 2)), rng.uniform(-1, 1, (10, 1)),
+          rng.uniform(1.0, 1.5, (10, 3)), rng.uniform(-4, -2, 10))
+    xyz, log_scale, quat, logit = (np.concatenate(a).astype(np.float32)
+                                   for a in zip(*groups))
+    arrays = types.SimpleNamespace(
+        xyz=xyz, log_scale=log_scale, quat=quat, opacity_logit=logit,
+        sh=rng.normal(scale=0.3, size=(xyz.shape[0], 1, 3)).astype(np.float32))
+    return GaussianCloud.from_numpy(arrays, device=device)
+
+
 def grad_parity(got, want) -> dict:
     """Scale-relative error of gradient leaves (pairs of arrays or
     tensors): err = |got − want| / max|want| per leaf, pooled over all

@@ -13,50 +13,68 @@
 // triangular-matmul cumsum, 128-lane slab DMA, R-tile groups, LOG_PAD
 // lane masking and the packed-payload decode.
 //
-// Design: one CTA per tile, 256 threads, one thread per pixel. The CTA walks
-// its segment in batches of 256 pairs; for each batch every thread loads
-// one pair through sorted_gidx from the [N, 12] per-splat field array (a
-// gather of one 48-byte row, three 16-byte loads), turns it into the six
-// rows of the bilinear form in tile-local coordinates once, and stages them
-// in shared memory. Each thread then runs the sequential INRIA recurrence
-// for its pixel, carrying its log-transmittance. A block-wide vote
-// (__syncthreads_count) stops the walk once every pixel is done.
+// What bounds it on this card: per (pair, pixel) step the work is ~20 FP32
+// operations and three transcendentals out of shared memory; device memory
+// sees the 48-byte field row of each pair once per tile. The first port
+// evaluated power at every pixel of the tile for every staged pair, but only
+// ~7% of those steps pass the 1/255 cutoff (a pair covers ~16 of the 256
+// pixels), and it ran the tiles in raster order, so a crowded tile that
+// started late set the tail. So the kernel is bound by issue slots spent on
+// steps that do no work and by load imbalance, not by bytes.
 //
-// Bounds on the card: per (pair, pixel) the work is ~20 FP32 operations and
-// three transcendentals (exp, log1p, exp) out of shared memory, so the
-// kernel is bound by the SM's FP32/SFU issue rate and by load imbalance
-// between tiles (segments range from 0 to k_cap pairs), not by device
-// memory: the pair gather reads 48 bytes per pair once per tile. The
-// design keeps the per-pixel loop in registers and shared memory, exits a
-// tile as soon as every pixel is saturated, and stages a batch with one
-// coalesced load per thread.
+// Design: one CTA per tile, 256 threads, one thread per pixel; warp w covers
+// the 8x4 pixel block at column 8 (w & 1), row 4 (w >> 1) of the tile (round
+// footprints touch fewer 8x4 blocks than 16x2 rows). The CTA walks its
+// segment in batches of 256 pairs: each thread gathers one pair through
+// sorted_gidx (one 48-byte row, three 16-byte loads), turns it into the six
+// rows of the bilinear form once, and computes the pair's footprint mask
+// (footprint.cuh): the 8x4 blocks its power can reach log(1/255) in. A warp
+// then walks only the pairs whose bit it holds, 32 mask bytes at a time
+// through one ballot, so a warp-uniform branch skips the rest. Each thread
+// runs the sequential INRIA recurrence for its pixel, carrying its log-T; a
+// block-wide vote stops the walk once every pixel is done. Tiles run heavy
+// first: the launch first writes the tiles in descending order of their
+// capped pair count (tile_order.cuh), and block b takes tile tile_order[b].
+//
+// The next batch's gather is not overlapped with the composite by cp.async:
+// a batch gathers 256 rows (12 KB, mostly L2 hits) once per 256 pairs, and
+// the SM's other resident CTAs (six, at 40 registers a thread) composite
+// meanwhile; with room for eight the kernel ran no faster
+// on an H100 (PERF.md, Findings), so waiting on memory is not what holds it
+// back.
 //
 // Numerics: the six form rows and power are summed with __fmul_rn /
 // __fadd_rn in the order of the plain PyTorch twin (ops/rasterize.py), so
 // no FMA contraction changes power and the cutoff, clamp and early-exit
-// decisions match the twin bit for bit. Build without -use_fast_math.
+// decisions match the twin bit for bit; the footprint cull skips only
+// pixels whose power, so rounded, is below the cutoff (footprint.cuh), so
+// it changes no decision. Build without -use_fast_math.
 //
 // Outputs (row-major images): rgb [H, W, 3] premultiplied, alpha [H, W],
 // and INRIA's per-pixel residual for the backward pass: final_log_t [H, W]
 // (log-T after the last contributing pair) and last_idx [H, W] (the
-// segment-local index of the last contributing pair, -1 if none). The
-// backward kernel (ROADMAP item 6) walks each pixel back to front from
-// last_idx, rebuilding T from final_log_t. Pixels past W or H are masked.
+// segment-local index of the last contributing pair, -1 if none). Kernel B
+// walks each pixel back to front from last_idx, rebuilding T from
+// final_log_t. Pixels past W or H are masked.
 
 #include <cuda_runtime.h>
 
+#include "footprint.cuh"
+#include "tile_order.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;  // threads per CTA, one per pixel
 constexpr int kBatch = kPix;         // pairs staged per step, one per thread
 constexpr int kRow = 12;             // floats per splat row of `fields`
+constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kPix)
 raster_fwd_kernel(const float* __restrict__ fields,
                   const int* __restrict__ sorted_gidx,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_count,
+                  const int* __restrict__ tile_order,
                   int width, int height, int gx, int k_cap,
                   float log_cut, float alpha_max, float log_eps,
                   float* __restrict__ rgb, float* __restrict__ alpha,
@@ -65,12 +83,15 @@ raster_fwd_kernel(const float* __restrict__ fields,
   __shared__ float4 s_v0123[kBatch];  // power rows v0..v3
   __shared__ float4 s_v45rg[kBatch];  // rows v4, v5 and colour r, g
   __shared__ float s_b[kBatch];       // colour b
+  __shared__ unsigned char s_mask[kBatch];  // footprint block masks
 
-  const int tile = blockIdx.x;
+  const int tile = tile_order[blockIdx.x];
   const int tx = tile % gx;
   const int ty = tile / gx;
-  const int lx = threadIdx.x % kTile;
-  const int ly = threadIdx.x / kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int lx = block_x0(warp) + lane % kBlockW;
+  const int ly = block_y0(warp) + lane / kBlockW;
   const int x = tx * kTile + lx;
   const int y = ty * kTile + ly;
   const bool inside = x < width && y < height;
@@ -104,23 +125,32 @@ raster_fwd_kernel(const float* __restrict__ fields,
       const float mx = __fsub_rn(f0.x, ox);
       const float my = __fsub_rn(f0.y, oy);
       const float ca = f0.z, cb = f0.w, cc = f1.x;
+      const float log_op = logf(fmaxf(f2.x, 1e-30f));
       // v0 = log(op) - ((0.5 ca mx mx + cb mx my) + 0.5 cc my my)
       const float qa = __fmul_rn(__fmul_rn(__fmul_rn(0.5f, ca), mx), mx);
       const float qb = __fmul_rn(__fmul_rn(cb, mx), my);
       const float qc = __fmul_rn(__fmul_rn(__fmul_rn(0.5f, cc), my), my);
-      const float v0 = __fsub_rn(logf(fmaxf(f2.x, 1e-30f)),
-                                 __fadd_rn(__fadd_rn(qa, qb), qc));
+      const float v0 = __fsub_rn(log_op, __fadd_rn(__fadd_rn(qa, qb), qc));
       const float v1 = __fadd_rn(__fmul_rn(ca, mx), __fmul_rn(cb, my));
       const float v2 = __fadd_rn(__fmul_rn(cc, my), __fmul_rn(cb, mx));
       s_v0123[threadIdx.x] = make_float4(v0, v1, v2, __fmul_rn(-0.5f, ca));
       s_v45rg[threadIdx.x] = make_float4(__fmul_rn(-0.5f, cc), -cb, f1.y, f1.z);
       s_b[threadIdx.x] = f1.w;
+      s_mask[threadIdx.x] = static_cast<unsigned char>(
+          footprint_blocks(mx, my, ca, cb, cc, log_op, log_cut));
     }
     __syncthreads();
 
-    if (!done) {
-      const int n = min(kBatch, count - b0);
-      for (int i = 0; i < n; ++i) {
+    const int n = min(kBatch, count - b0);
+    // warp-uniform: the warp walks while any of its pixels is not done
+    for (int c0 = 0; c0 < n && !__all_sync(kFull, done); c0 += 32) {
+      const int mine = c0 + lane;
+      unsigned bits = __ballot_sync(
+          kFull, mine < n && ((s_mask[mine] >> warp) & 1u));
+      while (bits) {
+        const int i = c0 + __ffs(bits) - 1;
+        bits &= bits - 1;
+        if (done) continue;
         const float4 va = s_v0123[i];
         const float4 vb = s_v45rg[i];
         float power = __fadd_rn(va.x, __fmul_rn(va.y, px));
@@ -135,7 +165,7 @@ raster_fwd_kernel(const float* __restrict__ fields,
         const float log_t_incl = __fadd_rn(log_t, log1m);
         if (log_t_incl < log_eps) {
           done = true;
-          break;
+          continue;
         }
         const float w = __fmul_rn(a, expf(log_t));
         acc_r = __fadd_rn(acc_r, __fmul_rn(w, vb.z));
@@ -163,11 +193,13 @@ raster_fwd_kernel(const float* __restrict__ fields,
 
 extern "C" {
 
-// Launches kernel A on `stream` of `device` over gx * gy tiles and returns
-// the launch's cudaGetLastError() (0 on success). Pointers are device
-// pointers; `fields` must be 16-byte aligned with rows of 12 floats.
+// Launches kernel A on `stream` of `device` over gx * gy tiles: first the
+// heavy-first schedule into `tile_order` (gx * gy ints of scratch), then
+// the compositor, block b compositing tile tile_order[b]. Returns
+// cudaGetLastError() (0 on success). Pointers are device pointers;
+// `fields` must be 16-byte aligned with rows of 12 floats.
 int raster_fwd(const float* fields, const int* sorted_gidx,
-               const int* tile_start, const int* tile_count,
+               const int* tile_start, const int* tile_count, int* tile_order,
                int width, int height, int gx, int gy, int k_cap,
                float log_cut, float alpha_max, float log_eps,
                float* rgb, float* alpha, float* final_log_t, int* last_idx,
@@ -176,10 +208,13 @@ int raster_fwd(const float* fields, const int* sorted_gidx,
   if (set != cudaSuccess) return static_cast<int>(set);
   const int num_tiles = gx * gy;
   if (num_tiles > 0) {
-    raster_fwd_kernel<<<num_tiles, kPix, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        fields, sorted_gidx, tile_start, tile_count, width, height, gx, k_cap,
-        log_cut, alpha_max, log_eps, rgb, alpha, final_log_t, last_idx);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    heavy_first_order<<<1, kOrderThreads, 0, st>>>(tile_count, num_tiles,
+                                                   k_cap, tile_order);
+    raster_fwd_kernel<<<num_tiles, kPix, 0, st>>>(
+        fields, sorted_gidx, tile_start, tile_count, tile_order, width,
+        height, gx, k_cap, log_cut, alpha_max, log_eps, rgb, alpha,
+        final_log_t, last_idx);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,9 @@ backward, D reading the ordered lists C wrote; a CPU tensor runs the plain
 PyTorch versions (`ops/anchor.py`) through the same Function; any other
 device raises. Either way the backward folds the four row groups onto the
 splats with `fold_anchor_grads`. `launches` and `launches_bwd` count
-kernel launches and are changed nowhere else.
+kernel launches and are changed nowhere else. `prepare_fwd` and
+`prepare_bwd` do a launch's checks and allocations and return a callable
+that only launches, so a kernel can be timed alone.
 """
 
 from __future__ import annotations
@@ -90,9 +92,9 @@ def _check_inputs(fields, abins, width, height, config):
     return gx, gy
 
 
-def _launch(fields, abins, width, height, config) -> Tuple[Composite, Merge]:
-    """Kernel C over every tile of the frame."""
-    global launches
+def prepare_fwd(fields, abins, width, height, config):
+    """Kernel C's checks and outputs → (run, (Composite, Merge)): each run()
+    launches C once over every tile of the frame into the outputs."""
     smem = merge_smem_bytes(config)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
@@ -102,33 +104,41 @@ def _launch(fields, abins, width, height, config) -> Tuple[Composite, Merge]:
     gx, gy = _check_inputs(fields, abins, width, height, config)
     dev = fields.device
     kc = k_cap(config)
-    rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    alpha = torch.empty((height, width), dtype=torch.float32, device=dev)
-    final_log_t = torch.empty((height, width), dtype=torch.float32,
-                              device=dev)
-    last_idx = torch.empty((height, width), dtype=torch.int32, device=dev)
-    ordered = torch.empty((gx * gy, kc), dtype=torch.int32, device=dev)
-    k_used = torch.empty((gx * gy,), dtype=torch.int32, device=dev)
-    group = torch.empty((gx * gy, kc), dtype=torch.int8, device=dev)
-
+    out = Composite(
+        rgb=torch.empty((height, width, 3), dtype=torch.float32, device=dev),
+        alpha=torch.empty((height, width), dtype=torch.float32, device=dev),
+        final_log_t=torch.empty((height, width), dtype=torch.float32,
+                                device=dev),
+        last_idx=torch.empty((height, width), dtype=torch.int32, device=dev))
+    merge = Merge(
+        ordered=torch.empty((gx * gy, kc), dtype=torch.int32, device=dev),
+        k_used=torch.empty((gx * gy,), dtype=torch.int32, device=dev),
+        group=torch.empty((gx * gy, kc), dtype=torch.int8, device=dev))
+    ins = (fields, abins.sorted_gidx, abins.sorted_meta, abins.sorted_depth,
+           abins.starts)
     fn, err_str = _kernel_fn("anchor_fwd", 5, 7, 3, 7)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(fields.data_ptr(), abins.sorted_gidx.data_ptr(),
-             abins.sorted_meta.data_ptr(), abins.sorted_depth.data_ptr(),
-             abins.starts.data_ptr(),
-             width, height, gx, gy, c_max(config), kc, smem,
-             math.log(config.alpha_cutoff), config.alpha_max,
-             math.log(config.transmittance_eps),
-             rgb.data_ptr(), alpha.data_ptr(), final_log_t.data_ptr(),
-             last_idx.data_ptr(), ordered.data_ptr(), k_used.data_ptr(),
-             group.data_ptr(), dev.index, stream)
-    if err != 0:
-        raise RuntimeError(f"anchor_fwd launch failed: cuda error {err} "
-                           f"({err_str(err).decode()})")
-    launches += 1
-    return (Composite(rgb=rgb, alpha=alpha, final_log_t=final_log_t,
-                      last_idx=last_idx),
-            Merge(ordered=ordered, k_used=k_used, group=group))
+
+    def run():
+        global launches
+        err = fn(*(t.data_ptr() for t in ins),
+                 width, height, gx, gy, c_max(config), kc, smem,
+                 math.log(config.alpha_cutoff), config.alpha_max,
+                 math.log(config.transmittance_eps),
+                 *(t.data_ptr() for t in out + merge), dev.index, stream)
+        if err != 0:
+            raise RuntimeError(f"anchor_fwd launch failed: cuda error {err} "
+                               f"({err_str(err).decode()})")
+        launches += 1
+
+    return run, (out, merge)
+
+
+def _launch(fields, abins, width, height, config) -> Tuple[Composite, Merge]:
+    """Kernel C over every tile of the frame."""
+    run, out = prepare_fwd(fields, abins, width, height, config)
+    run()
+    return out
 
 
 def composite_anchor(fields: torch.Tensor, abins: AnchorBins, width: int,
@@ -158,10 +168,10 @@ def composite_anchor_backward(fields: torch.Tensor, abins: AnchorBins,
                        merge, d_rgb, d_alpha)
 
 
-def _launch_bwd(fields, abins, width, height, config, composite, merge,
-                d_rgb, d_alpha) -> torch.Tensor:
-    """Kernel D over every tile of the frame."""
-    global launches_bwd
+def prepare_bwd(fields, abins, width, height, config, composite, merge,
+                d_rgb, d_alpha):
+    """Kernel D's checks and zeroed output → (run, dpairs): each run()
+    launches D once over every tile of the frame into dpairs [4, M, 9]."""
     _check_fields(fields, abins, config)
     gx, gy = config.grid_size(width, height)
     dev = fields.device
@@ -185,21 +195,32 @@ def _launch_bwd(fields, abins, width, height, config, composite, merge,
     if pmax >= m or kmax > kc:
         raise ValueError("ordered lists index outside the entries or k_cap")
     dpairs = torch.zeros((4, m, GRAD_ROW), dtype=torch.float32, device=dev)
-
+    ins = (fields, abins.sorted_gidx, merge.ordered, merge.k_used,
+           merge.group, composite.final_log_t, composite.last_idx, d_rgb,
+           d_alpha)
     fn, err_str = _kernel_fn("anchor_bwd", 9, 6, 2, 1)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(fields.data_ptr(), abins.sorted_gidx.data_ptr(),
-             merge.ordered.data_ptr(), merge.k_used.data_ptr(),
-             merge.group.data_ptr(), composite.final_log_t.data_ptr(),
-             composite.last_idx.data_ptr(), d_rgb.data_ptr(),
-             d_alpha.data_ptr(),
-             width, height, gx, gy, kc, m,
-             math.log(config.alpha_cutoff), config.alpha_max,
-             dpairs.data_ptr(), dev.index, stream)
-    if err != 0:
-        raise RuntimeError(f"anchor_bwd launch failed: cuda error {err} "
-                           f"({err_str(err).decode()})")
-    launches_bwd += 1
+
+    def run():
+        global launches_bwd
+        err = fn(*(t.data_ptr() for t in ins),
+                 width, height, gx, gy, kc, m,
+                 math.log(config.alpha_cutoff), config.alpha_max,
+                 dpairs.data_ptr(), dev.index, stream)
+        if err != 0:
+            raise RuntimeError(f"anchor_bwd launch failed: cuda error {err} "
+                               f"({err_str(err).decode()})")
+        launches_bwd += 1
+
+    return run, dpairs
+
+
+def _launch_bwd(fields, abins, width, height, config, composite, merge,
+                d_rgb, d_alpha) -> torch.Tensor:
+    """Kernel D over every tile of the frame."""
+    run, dpairs = prepare_bwd(fields, abins, width, height, config,
+                              composite, merge, d_rgb, d_alpha)
+    run()
     return dpairs
 
 

@@ -2,7 +2,8 @@
 
 Each kernel is one file `csrc/<name>.cu` with a plain C interface, compiled
 by `nvcc` for `sm_90a` into `_build/lib<name>-<hash>.so` (the hash covers the
-source and the flags, so an edit rebuilds) and loaded with `ctypes`.
+source, the shared headers `csrc/*.cuh` and the flags, so an edit to any of
+them rebuilds) and loaded with `ctypes`.
 `nvcc` is looked up on PATH, then under $CUDA_HOME (default /usr/local/cuda).
 Each source has its own lock, so `load_all` runs one `nvcc` per source at
 the same time. Nothing here runs at import time.
@@ -51,8 +52,11 @@ def load(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = CSRC_DIR / f"{name}.cu"
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            src.read_bytes() + headers
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         so = BUILD_DIR / f"lib{name}-{digest}.so"
         if not so.exists():
             BUILD_DIR.mkdir(exist_ok=True)

@@ -1,5 +1,6 @@
 """Kernels A and B on the card vs their plain PyTorch twins, at small
-sizes, and the launches of a render and of a training step.
+sizes (including the adversarial scene of their footprint cull), and the
+launches of a render and of a training step.
 
 Marked `gpu`: every test skips without a CUDA device. The file imports
 neither jax nor tests/conftest.py, so it runs on the machine with the card:
@@ -16,6 +17,7 @@ import torch
 from gaussian_splatting_web_tpu_torch.bench_lib import (
     grad_parity,
     grad_parity_ok,
+    make_adversarial_scene,
     make_scene,
 )
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
@@ -99,6 +101,14 @@ def test_kernel_ragged_frame_and_cap(device):
                      cfg=CFG.replace(max_per_tile=32))
 
 
+def test_kernel_adversarial_scene(device):
+    """Needles, centres off the frame, opacities at the cutoff, sub-pixel
+    splats and splats past max_dup: the image rule and last_idx."""
+    out = _kernel_vs_plain(make_adversarial_scene(device="cpu"), 96, 64,
+                           device)
+    assert out.alpha.max().item() > 0.3
+
+
 def test_render_launches_kernel_once_per_frame(device):
     cloud = _scene(2).to(device)
     camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
@@ -123,9 +133,12 @@ def _backward_vs_plain(cloud, w, h, dev, cfg=CFG):
     d_alpha = torch.randn((h, w), generator=gen).to(dev)
     got = raster_cuda.composite_backward(fields, bins, w, h, cfg, fwd, d_rgb,
                                          d_alpha)
+    again = raster_cuda.composite_backward(fields, bins, w, h, cfg, fwd,
+                                           d_rgb, d_alpha)
     want = composite_backward_plain(fields, bins, w, h, cfg, fwd, d_rgb,
                                     d_alpha)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)            # bitwise repeatable
     n = fields.shape[0]
     g_got = fold_pair_grads(got, bins, n)
     g_want = fold_pair_grads(want, bins, n)
@@ -148,6 +161,36 @@ def test_backward_kernel_early_exit_scene(device):
 def test_backward_kernel_ragged_frame_and_cap(device):
     _backward_vs_plain(_scene(3, n=200), 72, 40, device,
                        cfg=CFG.replace(max_per_tile=32))
+
+
+def test_backward_kernel_adversarial_scene(device):
+    _backward_vs_plain(make_adversarial_scene(device="cpu"), 96, 64, device)
+
+
+def test_kernels_schedule_tiles_heavy_first(device):
+    """A and B write the heavy-first schedule before they composite: a
+    permutation of the tiles whose capped pair counts fall along it, as in
+    the plain twin `tile_order` (the kernel may order ties otherwise)."""
+    cfg = CFG.replace(max_per_tile=32)
+    w, h = 72, 40
+    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    splats = project_gaussians(_scene(3, n=200).to(device), camera.to(device),
+                               w, h, cfg)
+    bins = bin_splats(splats, w, h, cfg)
+    fields = pack_splat_fields(splats)
+    assert int(bins.tile_count.max()) > cfg.max_per_tile
+    capped = torch.clamp(bins.tile_count, max=cfg.max_per_tile)
+    want = capped[raster_cuda.tile_order(bins, cfg).long()]
+    run, (fwd, order) = raster_cuda.prepare_fwd(fields, bins, w, h, cfg)
+    run()
+    run_b, (_, order_b) = raster_cuda.prepare_bwd(
+        fields, bins, w, h, cfg, fwd, torch.ones((h, w, 3), device=device),
+        torch.ones((h, w), device=device))
+    run_b()
+    torch.cuda.synchronize()
+    for got in (order, order_b):
+        assert sorted(got.tolist()) == list(range(bins.tile_count.shape[0]))
+        assert torch.equal(capped[got.long()], want)
 
 
 def test_grads_flow_through_kernels(device):
