@@ -11,8 +11,9 @@ the bench camera (eye (0, 0, -8) looking at the origin). Phases, each
 printing one line; any failure raises and exits non-zero:
 
   0 device   nvidia-smi name and power limit; a CUDA device is required
-  1 build    nvcc builds csrc/raster_fwd.cu and csrc/raster_bwd.cu, one
-             process each, started together
+  1 build    nvcc builds the four kernel sources (csrc/raster_fwd.cu,
+             raster_bwd.cu, anchor_fwd.cu, anchor_bwd.cu, which share
+             csrc/tile_walk.cuh), one process each, started together
   2 kernel   kernel A vs its plain PyTorch twin on the same bins: an
              opaque early-exit scene, a 72x40 ragged frame, a 96x64
              adversarial scene (`bench_lib.make_adversarial_scene`:
@@ -20,12 +21,13 @@ printing one line; any failure raises and exits non-zero:
              sub-pixel splats, splats past max_dup) and the full 1080p
              frame; on each, the footprint cull's plain mirror against
              the twin's power (no culled step may pass the cutoff; the
-             culled share is printed); A timed at 1080p alone and
-             through its wrapper
+             culled share is printed); A's tile schedule at 1080p against
+             its plain twin; A timed at 1080p alone and through its
+             wrapper
   3 bwd      kernel B vs its plain twin on the same four scenes, after
              the fold (the gradient-parity gate below), bitwise
-             repeatable on each; B alone, B through its wrapper, its twin
-             and the fold timed at 1080p
+             repeatable on each; B's schedule against its twin; B alone,
+             B through its wrapper, its twin and the fold timed at 1080p
   4 render   `render` for a few frames: one kernel A launch per frame, a
              finite non-black image, pair and shrink counts against the
              JAX package's CPU figures; per-stage medians
@@ -48,11 +50,17 @@ default caps: 1,536-position covers, k_cap 1024):
  10 anchor   kernel C vs its plain twin on the same anchor bins: the opaque,
              ragged and adversarial scenes, a crowded 64x48 scene whose
              ranges overrun their cover and whose tiles hold more than
-             k_cap candidates, and 1080p; identical ordered lists, the
-             image rule; C alone, through its wrapper and its twin timed at
-             1080p
+             k_cap candidates, a 64x48 scene where a range A splits its
+             columns past its cover while range B holds candidates below
+             that split, and 1080p; identical ordered lists, the
+             image rule, and on each the footprint cull's mirror over C's
+             ordered lists (0 culled passing steps, culled share printed);
+             C's tile schedule a permutation in descending class of the
+             union its merge reads, as its plain twin's; C alone, through
+             its wrapper and its twin timed at 1080p
  11 anchor   kernel D vs its plain twin after the fold on the same scenes
-             (the gradient rule), bitwise repeatable; D alone, through its
+             (the gradient rule), bitwise repeatable on each; D's tile
+             schedule against its twin (by k_used); D alone, through its
              wrapper, its twin and the fold timed at 1080p
  12 anchor   `render` at 1080p for a few frames: one C launch per frame, no
              A or B; entries, overflow and truncated ranges against the JAX
@@ -73,8 +81,8 @@ cuDNN so the plain twins and SSIM compute in full f32.
 
 Kernel times: "kernel" is the launch alone (`prepare_*` does the checks
 and allocations first; CUDA events around 5 back-to-back launches, divided
-by 5, median of 7 samples after warm-up; A's and B's launches include
-their one-block tile-schedule kernel), the time in the JSON line;
+by 5, median of 7 samples after warm-up; every launch includes its
+one-block tile-schedule kernel), the time in the JSON line;
 "wrapper" is the whole wrapper call (checks, allocations, launch) between
 CUDA events, median of 7; the plain twins are timed that way too. C and D
 are timed with the same helpers.
@@ -92,11 +100,11 @@ exit, B and D up to its last contributing pair; C and D count as A and B
 over the ordered lists. Printed beside it, the "step bound" charges a
 power evaluation to every walked step, passing or not (the definition the
 port's first kernels were measured against, kept so shares compare across
-records). C's bytes add its merge's union loads (5 bytes per position
-read, every tile's two covers) and its ordered-list outputs; its sort's
-compares are not counted as operations. D's bytes count the ordered lists
-it reads and the rows it writes (36 bytes per kept pair), not the zeroed
-array.
+records). C's bytes add its merge's union loads (1 meta byte per position
+read, every tile's two covers, and the 4-byte depth of each touched
+position) and its ordered-list outputs; its merge's compares are not
+counted as operations. D's bytes count the ordered lists it reads and the
+rows it writes (36 bytes per kept pair), not the zeroed array.
 
 Prints the card line, a JSON line of kernel results, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -395,6 +403,19 @@ def cull_check(fields, bins, w, h, cfg, what):
     return stats["culled"] / max(stats["steps"], 1)
 
 
+def schedule_check(order, weight, cap, what):
+    """A kernel's heavy-first schedule: a permutation of the tiles whose
+    weight classes fall along it as along the plain twin's."""
+    t = weight.shape[0]
+    check(torch.equal(torch.sort(order.long()).values,
+                      torch.arange(t, device=order.device)),
+          f"{what}: the tile schedule is not a permutation of the tiles")
+    cls = raster_cuda.order_class(weight, cap)
+    want = raster_cuda.heavy_first_order(weight, cap).long()
+    check(torch.equal(cls[order.long()], cls[want]),
+          f"{what}: the tile schedule is not heavy first")
+
+
 def phase_kernel(dev, cloud, cfg):
     findings = {}
     for what, scene, w, h, z in small_scenes(dev):
@@ -417,7 +438,10 @@ def phase_kernel(dev, cloud, cfg):
     want = composite_image_plain(fields, bins, W, H, cfg)
     full = compare(got, want, "1080p")
     full["culled"] = cull_check(fields, bins, W, H, cfg, "1080p")
-    ms = kernel_ms(raster_cuda.prepare_fwd(fields, bins, W, H, cfg))
+    prepared = raster_cuda.prepare_fwd(fields, bins, W, H, cfg)
+    ms = kernel_ms(prepared)
+    schedule_check(prepared[1][1], bins.tile_count, cfg.max_per_tile,
+                   "kernel A")
     wrapper_ms = median_ms(
         lambda: raster_cuda.composite_image(fields, bins, W, H, cfg), 7)
     plain_ms = median_ms(
@@ -435,8 +459,8 @@ def phase_kernel(dev, cloud, cfg):
                       f"last-idx diff {v['last_idx_frac']:.2e}, "
                       f"culled {v['culled']:.4f} of the steps, 0 passing"
                       for k, v in findings.items())
-          + f"; 1080p kernel {ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; "
+          + f"; schedule heavy first; 1080p kernel {ms:.3f} ms, wrapper "
+          f"{wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms; "
           + work_line(steps["A"], nbytes, bound_ms, bound_by, step_ms))
     return {"max_abs_err": full["max_abs_err"], "ms": ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -481,8 +505,11 @@ def phase_backward(dev, cfg, full):
     stats, (d_rgb, d_alpha, dpairs) = backward_vs_plain(
         fields, bins, fwd, W, H, cfg, "1080p")
     findings["1080p"] = stats
-    ms = kernel_ms(raster_cuda.prepare_bwd(fields, bins, W, H, cfg, fwd,
-                                           d_rgb, d_alpha))
+    prepared = raster_cuda.prepare_bwd(fields, bins, W, H, cfg, fwd, d_rgb,
+                                       d_alpha)
+    ms = kernel_ms(prepared)
+    schedule_check(prepared[1][1], bins.tile_count, cfg.max_per_tile,
+                   "kernel B")
     wrapper_ms = median_ms(lambda: raster_cuda.composite_backward(
         fields, bins, W, H, cfg, fwd, d_rgb, d_alpha), 7)
     plain_ms = median_ms(lambda: composite_backward_plain(
@@ -499,8 +526,9 @@ def phase_backward(dev, cfg, full):
                       f">1% {v['nbig']}/{v['n']}, "
                       f"max_abs_err {v['max_abs_err']:.3e}"
                       for k, v in findings.items())
-          + f"; 1080p kernel {ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, fold {fold_ms:.3f} ms; "
+          + f"; schedule heavy first; 1080p kernel {ms:.3f} ms, wrapper "
+          f"{wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, fold "
+          f"{fold_ms:.3f} ms; "
           + work_line(steps["B"], nbytes, bound_ms, bound_by, step_ms,
                       "contributing"))
     return {"max_abs_err": findings["1080p"]["max_abs_err"], "ms": ms,
@@ -509,14 +537,20 @@ def phase_backward(dev, cfg, full):
             "fold_ms": fold_ms}
 
 
-def crowded_scene(dev):
-    """2500 small splats over the central tiles of a 64x48 frame: at the
-    default caps some ranges overrun their 1,536-position cover and some
-    tiles hold more than k_cap = 1024 touched candidates."""
-    cloud = make_scene(2500, seed=9, sh_degree=0,
-                       log_scale_range=(-3.5, -1.5), device=dev)
-    cloud.xyz = cloud.xyz * 0.15
-    return ("crowded 64x48", cloud, 64, 48, -6.0)
+def crowded_scenes(dev):
+    """2500 small splats over the central tiles of a 64x48 frame. Crowded:
+    at the default caps some ranges overrun their 1,536-position cover and
+    some tiles hold more than k_cap = 1024 touched candidates. Column
+    overrun: spread wider, so that a range A splits its columns past its
+    cover while range B holds candidates below that split."""
+    out = []
+    for what, seed, spread in (("crowded 64x48", 9, 0.15),
+                               ("column overrun 64x48", 1, 0.25)):
+        cloud = make_scene(2500, seed=seed, sh_degree=0,
+                           log_scale_range=(-3.5, -1.5), device=dev)
+        cloud.xyz = cloud.xyz * spread
+        out.append((what, cloud, 64, 48, -6.0))
+    return out
 
 
 def anchor_binned(cloud, camera, w, h, cfg):
@@ -527,21 +561,25 @@ def anchor_binned(cloud, camera, w, h, cfg):
 
 def anchor_vs_plain(fields, abins, w, h, cfg, what):
     """Kernel C against its plain twin: identical ordered lists, lengths
-    and row groups, and the image rule."""
+    and row groups, the image rule, and the footprint cull's mirror over
+    C's ordered lists (no culled step passes the cutoff)."""
     got, merge = anchor_cuda.composite_anchor(fields, abins, w, h, cfg)
     want, want_merge = anchor.composite_anchor_plain(fields, abins, w, h,
                                                      cfg)
     for name, a, b in zip(anchor.Merge._fields, merge, want_merge):
         check(torch.equal(a, b), f"{what}: kernel C's {name} differs from "
               "the plain merge")
-    return compare(got, want, what), got, merge
+    found = compare(got, want, what)
+    view, vcfg = anchor.ordered_view(abins, merge, cfg)
+    found["culled"] = cull_check(fields, view, w, h, vcfg, what)
+    return found, got, merge
 
 
 def phase_anchor_kernel(dev, cloud, cfg):
     findings = {}
     half = anchor.c_max(cfg) * anchor.KCL
     kc = anchor.k_cap(cfg)
-    for what, scene, w, h, z in small_scenes(dev) + [crowded_scene(dev)]:
+    for what, scene, w, h, z in small_scenes(dev) + crowded_scenes(dev):
         camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
         fields, abins = anchor_binned(scene, camera, w, h, cfg)
         findings[what], got, merge = anchor_vs_plain(fields, abins, w, h, cfg,
@@ -551,12 +589,22 @@ def phase_anchor_kernel(dev, cloud, cfg):
             check(int((rng.s1 - rng.base).max()) > half and
                   int(merge.k_used.max()) == kc,
                   "crowded scene: no cover overrun or no k_cap cut")
+        if what.startswith("column"):
+            check(bool(anchor.split_overruns(abins, *cfg.grid_size(w, h),
+                                             cfg).any()),
+                  "column overrun scene: no range A split past its cover "
+                  "with range B candidates below the split")
 
     camera = bench_camera(W, H, dev)
     fields, abins = anchor_binned(cloud, camera, W, H, cfg)
     findings["1080p"], got, merge = anchor_vs_plain(fields, abins, W, H, cfg,
                                                     "1080p")
-    ms = kernel_ms(anchor_cuda.prepare_fwd(fields, abins, W, H, cfg))
+    gx, gy = cfg.grid_size(W, H)
+    prepared = anchor_cuda.prepare_fwd(fields, abins, W, H, cfg)
+    ms = kernel_ms(prepared)
+    schedule_check(prepared[1][2],
+                   *anchor_cuda.schedule_weight(abins, gx, gy, cfg),
+                   "kernel C")
     wrapper_ms = median_ms(
         lambda: anchor_cuda.composite_anchor(fields, abins, W, H, cfg), 7)
     plain_ms = median_ms(
@@ -564,24 +612,24 @@ def phase_anchor_kernel(dev, cloud, cfg):
         warmup=1)
     view, vcfg = anchor.ordered_view(abins, merge, cfg)
     steps = work(fields, view, got, W, H, vcfg)
-    gx, gy = cfg.grid_size(W, H)
     t = gx * gy
-    rng = anchor.tile_ranges(abins, gx, gy, cfg)
-    union = int(torch.clamp(torch.minimum(rng.s1, rng.base + half) - rng.s0,
-                            min=0).sum())
+    union = int(anchor.cover_lengths(abins, gx, gy, cfg).sum())
+    touched = int(anchor.touched_counts(abins, gx, gy, cfg).sum())
     kept = int(merge.k_used.sum())
-    nbytes = (fields.numel() * 4 + (t + 1) * 4 + union * 5 + kept * 4
-              + H * W * 6 * 4 + t * kc * 5 + t * 4)
+    nbytes = (fields.numel() * 4 + (t + 1) * 4 + union + touched * 4
+              + kept * 4 + H * W * 6 * 4 + t * kc * 5 + t * 4)
     bound_ms, bound_by, step_ms = bound("anchor_fwd", steps["A"], nbytes)
     print(f"[10 anchor] kernel C vs plain twin: "
           + "; ".join(f"{k}: max_abs_err {v['max_abs_err']:.3e}, "
                       f">{ATOL} on {v['bad_frac']:.2e}, "
                       f"log-T err {v['log_t_err']:.2e}, "
-                      f"last-idx diff {v['last_idx_frac']:.2e}"
+                      f"last-idx diff {v['last_idx_frac']:.2e}, "
+                      f"culled {v['culled']:.4f} of the steps, 0 passing"
                       for k, v in findings.items())
-          + f"; ordered lists identical; 1080p kernel {ms:.3f} ms, wrapper "
-          f"{wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms; union positions "
-          f"read {union}, kept pairs {kept}; "
+          + f"; ordered lists identical; schedule heavy first; 1080p kernel "
+          f"{ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; union positions "
+          f"read {union}, touched {touched}, kept pairs {kept}; "
           + work_line(steps["A"], nbytes, bound_ms, bound_by, step_ms))
     return {"max_abs_err": findings["1080p"]["max_abs_err"], "ms": ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -616,7 +664,7 @@ def anchor_backward_vs_plain(fields, abins, fwd, merge, w, h, cfg, what):
 
 def phase_anchor_backward(dev, cfg, full):
     findings = {}
-    for what, scene, w, h, z in small_scenes(dev) + [crowded_scene(dev)]:
+    for what, scene, w, h, z in small_scenes(dev) + crowded_scenes(dev):
         camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
         fields, abins = anchor_binned(scene, camera, w, h, cfg)
         fwd, merge = anchor_cuda.composite_anchor(fields, abins, w, h, cfg)
@@ -626,8 +674,11 @@ def phase_anchor_backward(dev, cfg, full):
     stats, (d_rgb, d_alpha, dpairs) = anchor_backward_vs_plain(
         fields, abins, fwd, merge, W, H, cfg, "1080p")
     findings["1080p"] = stats
-    ms = kernel_ms(anchor_cuda.prepare_bwd(fields, abins, W, H, cfg, fwd,
-                                           merge, d_rgb, d_alpha))
+    prepared = anchor_cuda.prepare_bwd(fields, abins, W, H, cfg, fwd, merge,
+                                       d_rgb, d_alpha)
+    ms = kernel_ms(prepared)
+    schedule_check(prepared[1][1], merge.k_used, anchor.k_cap(cfg),
+                   "kernel D")
     wrapper_ms = median_ms(lambda: anchor_cuda.composite_anchor_backward(
         fields, abins, W, H, cfg, fwd, merge, d_rgb, d_alpha), 7)
     plain_ms = median_ms(lambda: anchor.composite_anchor_backward_plain(
@@ -639,12 +690,13 @@ def phase_anchor_backward(dev, cfg, full):
     nbytes = (fields.numel() * 4 + kept * (4 + 4 + 1) + t * 4
               + H * W * 6 * 4 + kept * 36)
     bound_ms, bound_by, step_ms = bound("anchor_bwd", steps["B"], nbytes)
-    print("[11 anchor] kernel D vs plain twin after the fold: "
+    print("[11 anchor] kernel D vs plain twin after the fold, bitwise "
+          "repeatable on each scene: "
           + "; ".join(f"{k}: p99 {v['p99']:.2e}, max {v['max']:.2e}, "
                       f">1% {v['nbig']}/{v['n']}, "
                       f"max_abs_err {v['max_abs_err']:.3e}"
                       for k, v in findings.items())
-          + f"; bitwise repeatable; 1080p kernel {ms:.3f} ms, wrapper "
+          + f"; schedule heavy first; 1080p kernel {ms:.3f} ms, wrapper "
           f"{wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms, fold "
           f"{fold_ms:.3f} ms; "
           + work_line(steps["B"], nbytes, bound_ms, bound_by, step_ms,

@@ -1,16 +1,19 @@
-// The heavy-first tile schedule shared by kernels A and B.
+// The heavy-first tile schedule shared by kernels A, B, C and D.
 //
 // One CTA per tile runs in blockIdx order, and the SMs take blocks as they
 // free up, so a crowded tile that starts late sets the tail of the launch.
 // Before its main kernel, each launch runs heavy_first_order on the same
-// stream: one block that writes the tiles in descending class of their
-// capped pair count min(tile_count, k_cap), by a counting sort in shared
-// memory (a histogram, a scan from the heaviest class down, a scatter).
-// The class is the capped count itself while k_cap < kOrderClasses, else
-// the capped count in kOrderClasses equal bins. Within a class the order is
-// that of the shared-memory cursors: the kernels' outputs do not depend on
-// the schedule, so any order gives the same bits. The plain twin is
-// ops/cuda/raster.py::tile_order.
+// stream: one block that writes the tiles in descending class of a
+// per-tile weight capped at `cap`, by a counting sort in shared memory (a
+// histogram, a scan from the heaviest class down, a scatter). The weight is
+// a functor of the tile: A and B take the pair count (TileCount over
+// tile_count, cap k_cap), D the ordered list's length (TileCount over
+// k_used), C the union positions its merge reads (anchor_fwd.cu). The class
+// is the capped weight itself while cap < kOrderClasses, else the capped
+// weight in kOrderClasses equal bins. Within a class the order is that of
+// the shared-memory cursors: the kernels' outputs do not depend on the
+// schedule, so any order gives the same bits. The plain twins are
+// ops/cuda/raster.py::tile_order and anchor_tile_order.
 
 #pragma once
 
@@ -19,24 +22,31 @@
 constexpr int kOrderThreads = 1024;
 constexpr int kOrderClasses = 2048;
 
-__device__ __forceinline__ int order_class(int count, int k_cap) {
-  const int c = min(max(count, 0), k_cap);
-  return k_cap < kOrderClasses
+__device__ __forceinline__ int order_class(int weight, int cap) {
+  const int c = min(max(weight, 0), cap);
+  return cap < kOrderClasses
              ? c
              : static_cast<int>(static_cast<long long>(c) *
-                                (kOrderClasses - 1) / k_cap);
+                                (kOrderClasses - 1) / cap);
 }
+
+// the weight of tile t is count[t]
+struct TileCount {
+  const int* count;
+  __device__ __forceinline__ int operator()(int t) const { return count[t]; }
+};
 
 namespace {
 
+template <class Weight>
 __global__ void __launch_bounds__(kOrderThreads)
-heavy_first_order(const int* __restrict__ tile_count, int num_tiles,
-                  int k_cap, int* __restrict__ order) {
+heavy_first_order(Weight weight, int num_tiles, int cap,
+                  int* __restrict__ order) {
   __shared__ int s_base[kOrderClasses];
   for (int c = threadIdx.x; c < kOrderClasses; c += blockDim.x) s_base[c] = 0;
   __syncthreads();
   for (int t = threadIdx.x; t < num_tiles; t += blockDim.x)
-    atomicAdd(&s_base[order_class(tile_count[t], k_cap)], 1);
+    atomicAdd(&s_base[order_class(weight(t), cap)], 1);
   __syncthreads();
   // s_base[c] becomes the number of tiles in the classes above c: lane l of
   // warp 0 scans the l-th run of 64 classes from the top
@@ -61,7 +71,7 @@ heavy_first_order(const int* __restrict__ tile_count, int num_tiles,
   }
   __syncthreads();
   for (int t = threadIdx.x; t < num_tiles; t += blockDim.x)
-    order[atomicAdd(&s_base[order_class(tile_count[t], k_cap)], 1)] = t;
+    order[atomicAdd(&s_base[order_class(weight(t), cap)], 1)] = t;
 }
 
 }  // namespace

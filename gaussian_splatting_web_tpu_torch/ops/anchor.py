@@ -196,23 +196,27 @@ def tile_ranges(abins: AnchorBins, gx: int, gy: int,
     return Ranges(*(torch.stack([a, b], 1) for a, b in zip(*out)))
 
 
-def merge_tiles(abins: AnchorBins, gx: int, gy: int,
-                config: RenderConfig) -> Merge:
-    """The plain version of kernel C's merge: per tile, the first k_cap
-    touched candidates of its two ranges in (depth, union lane) order."""
-    dev = abins.starts.device
+def cover_lengths(abins: AnchorBins, gx: int, gy: int,
+                  config: RenderConfig) -> torch.Tensor:
+    """[T, 2] int64 positions each range of each tile reads: from its first
+    position to its end clipped at the aligned cover."""
+    rng = tile_ranges(abins, gx, gy, config)
+    end = torch.minimum(rng.s1, rng.base + c_max(config) * KCL)
+    return torch.clamp(end - rng.s0, min=0)
+
+
+def _candidates(abins: AnchorBins, gx: int, gy: int, config: RenderConfig):
+    """Kernel C's touch rule, a chunk of tiles at a time → (slice, pos,
+    touch): each tile's union lanes [C, 2·half] (range A's c_max·KCL lanes,
+    then range B's) as sorted positions clamped into the entries, and
+    whether each is a touched candidate."""
     num_tiles = gx * gy
     half = c_max(config) * KCL
-    kc = k_cap(config)
     rng = tile_ranges(abins, gx, gy, config)
     end = torch.minimum(rng.s1, rng.base + half)
     m = abins.sorted_gidx.shape[0]
-
-    lane = torch.arange(2 * half, device=dev)
+    lane = torch.arange(2 * half, device=abins.starts.device)
     r = lane // half                                   # 0 = A, 1 = B
-    ordered = torch.full((num_tiles, kc), -1, dtype=torch.int32, device=dev)
-    group = torch.zeros((num_tiles, kc), dtype=torch.int8, device=dev)
-    k_used = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
     chunk = max(1, MERGE_ELEMS // (2 * half))
     for t0 in range(0, num_tiles, chunk):
         sl = slice(t0, t0 + chunk)
@@ -225,16 +229,55 @@ def merge_tiles(abins: AnchorBins, gx: int, gy: int,
         ok_col = own_col | wide
         touch_b = torch.where(dup, own_col, ok_col)
         touch_a = ~dup & ok_col & tall
-        touch = in_rng & torch.where(r == 1, touch_b, touch_a)
+        yield sl, safe, in_rng & torch.where(r == 1, touch_b, touch_a)
+
+
+def touched_counts(abins: AnchorBins, gx: int, gy: int,
+                   config: RenderConfig) -> torch.Tensor:
+    """[T] int64 touched candidates of each tile's two ranges before the
+    k_cap cut: the union positions whose depth kernel C's merge loads."""
+    return torch.cat([touch.sum(1) for _, _, touch in
+                      _candidates(abins, gx, gy, config)])
+
+
+def split_overruns(abins: AnchorBins, gx: int, gy: int,
+                   config: RenderConfig) -> torch.Tensor:
+    """[T] bool, for the kernel checks: the tiles whose range A splits its
+    columns past its cover's end (column tx−1 of row ty−1 holds more
+    entries than the cover has left) while range B holds touched
+    candidates in the union lanes below that split, where kernel C's run
+    bounds must stop at range A's end."""
+    half = c_max(config) * KCL
+    rng = tile_ranges(abins, gx, gy, config)
+    past = rng.sb[:, 0] - rng.base[:, 0] - half
+    lanes = torch.arange(half, device=abins.starts.device)
+    return torch.cat([(touch[:, half:] & (lanes < past[sl, None])).any(1)
+                      for sl, _, touch in _candidates(abins, gx, gy, config)])
+
+
+def merge_tiles(abins: AnchorBins, gx: int, gy: int,
+                config: RenderConfig) -> Merge:
+    """The plain version of kernel C's merge: per tile, the first k_cap
+    touched candidates of its two ranges in (depth, union lane) order."""
+    dev = abins.starts.device
+    num_tiles = gx * gy
+    half = c_max(config) * KCL
+    kc = k_cap(config)
+    lane = torch.arange(2 * half, device=dev)
+    r = lane // half                                   # 0 = A, 1 = B
+    ordered = torch.full((num_tiles, kc), -1, dtype=torch.int32, device=dev)
+    group = torch.zeros((num_tiles, kc), dtype=torch.int8, device=dev)
+    k_used = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+    for sl, pos, touch in _candidates(abins, gx, gy, config):
         # (uint32 depth − 2³¹) << 32 | lane: the uint64 order in an int64
-        depth = abins.sorted_depth[safe].long() & 0xFFFFFFFF
+        depth = abins.sorted_depth[pos].long() & 0xFFFFFFFF
         hi = torch.where(touch, depth, 0xFFFFFFFF) - (1 << 31)
         key = (hi << 32) | lane
         _, idx = torch.sort(key, dim=1)
         idx = idx[:, :kc]
         kept = torch.arange(kc, device=dev) < torch.clamp(
             touch.sum(1), max=kc)[:, None]
-        tx = torch.arange(t0, t0 + idx.shape[0], device=dev) % gx
+        tx = torch.arange(sl.start, sl.start + idx.shape[0], device=dev) % gx
         ordered[sl] = torch.where(kept, pos.gather(1, idx), -1).to(torch.int32)
         group[sl] = torch.where(kept, r[idx] * 2 + tx[:, None] % 2,
                                 0).to(torch.int8)

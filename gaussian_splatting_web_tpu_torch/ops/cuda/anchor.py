@@ -15,7 +15,10 @@ device raises. Either way the backward folds the four row groups onto the
 splats with `fold_anchor_grads`. `launches` and `launches_bwd` count
 kernel launches and are changed nowhere else. `prepare_fwd` and
 `prepare_bwd` do a launch's checks and allocations and return a callable
-that only launches, so a kernel can be timed alone.
+that only launches, so a kernel can be timed alone. Both kernels share A's
+and B's walks (`csrc/tile_walk.cuh`) and run the tiles heavy first
+(`csrc/tile_order.cuh`; the plain twins are `tile_order` for C, by
+`schedule_weight`, and `raster.heavy_first_order` over `k_used` for D).
 """
 
 from __future__ import annotations
@@ -34,26 +37,44 @@ from ..anchor import (
     c_max,
     composite_anchor_backward_plain,
     composite_anchor_plain,
+    cover_lengths,
     fold_anchor_grads,
     k_cap,
 )
 from ..rasterize import FIELD_ROW, GRAD_ROW, Composite
-from .raster import _check, _device_of, _kernel_fn
+from .raster import _check, _device_of, _kernel_fn, heavy_first_order
 
 launches = 0       # kernel C
 launches_bwd = 0   # kernel D
 
-# kernel C's shared memory: the sort keys (8 bytes each, the union padded to
-# a power of two) and the staged batch (256 pairs × 36 bytes), within the
+# kernel C's shared memory: the merge keys (8 bytes for each union lane),
+# whose space the composite's batch stage (FWD_BATCH pairs × 37 bytes) then
+# reuses, and the ordered list (4 bytes for each of k_cap lanes), within the
 # 227 KB a block may opt into on Hopper
-STAGE_BYTES = 256 * 36
+FWD_BATCH = 256        # csrc/tile_walk.cuh: kFwdBatch (held in tests)
+STAGE_BYTES = FWD_BATCH * 37
 MAX_SMEM_BYTES = 232_448 - 16
 
 
 def merge_smem_bytes(config: RenderConfig) -> int:
     """Dynamic shared memory kernel C needs for this config."""
     union = 2 * c_max(config) * KCL
-    return (1 << (union - 1).bit_length()) * 8 + STAGE_BYTES
+    return max(union * 8, STAGE_BYTES) + k_cap(config) * 4
+
+
+def schedule_weight(abins: AnchorBins, gx: int, gy: int,
+                    config: RenderConfig) -> Tuple[torch.Tensor, int]:
+    """Kernel C's heavy-first weight (`csrc/anchor_fwd.cu::CoverWeight`)
+    and its cap: the union positions a tile's merge reads, its two ranges'
+    clipped cover lengths, capped at both covers' lanes."""
+    return (cover_lengths(abins, gx, gy, config).sum(1),
+            2 * c_max(config) * KCL)
+
+
+def tile_order(abins: AnchorBins, gx: int, gy: int,
+               config: RenderConfig) -> torch.Tensor:
+    """The plain twin of kernel C's schedule."""
+    return heavy_first_order(*schedule_weight(abins, gx, gy, config))
 
 
 def _check_fields(fields, abins, config):
@@ -93,8 +114,9 @@ def _check_inputs(fields, abins, width, height, config):
 
 
 def prepare_fwd(fields, abins, width, height, config):
-    """Kernel C's checks and outputs → (run, (Composite, Merge)): each run()
-    launches C once over every tile of the frame into the outputs."""
+    """Kernel C's checks and outputs → (run, (Composite, Merge, order)):
+    each run() launches C once over every tile of the frame into the
+    outputs, writing its tile schedule into `order` first."""
     smem = merge_smem_bytes(config)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
@@ -114,9 +136,10 @@ def prepare_fwd(fields, abins, width, height, config):
         ordered=torch.empty((gx * gy, kc), dtype=torch.int32, device=dev),
         k_used=torch.empty((gx * gy,), dtype=torch.int32, device=dev),
         group=torch.empty((gx * gy, kc), dtype=torch.int8, device=dev))
+    order = torch.empty((gx * gy,), dtype=torch.int32, device=dev)
     ins = (fields, abins.sorted_gidx, abins.sorted_meta, abins.sorted_depth,
-           abins.starts)
-    fn, err_str = _kernel_fn("anchor_fwd", 5, 7, 3, 7)
+           abins.starts, order)
+    fn, err_str = _kernel_fn("anchor_fwd", 6, 7, 3, 7)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run():
@@ -131,14 +154,14 @@ def prepare_fwd(fields, abins, width, height, config):
                                f"({err_str(err).decode()})")
         launches += 1
 
-    return run, (out, merge)
+    return run, (out, merge, order)
 
 
 def _launch(fields, abins, width, height, config) -> Tuple[Composite, Merge]:
     """Kernel C over every tile of the frame."""
-    run, out = prepare_fwd(fields, abins, width, height, config)
+    run, (out, merge, _) = prepare_fwd(fields, abins, width, height, config)
     run()
-    return out
+    return out, merge
 
 
 def composite_anchor(fields: torch.Tensor, abins: AnchorBins, width: int,
@@ -170,8 +193,9 @@ def composite_anchor_backward(fields: torch.Tensor, abins: AnchorBins,
 
 def prepare_bwd(fields, abins, width, height, config, composite, merge,
                 d_rgb, d_alpha):
-    """Kernel D's checks and zeroed output → (run, dpairs): each run()
-    launches D once over every tile of the frame into dpairs [4, M, 9]."""
+    """Kernel D's checks and zeroed output → (run, (dpairs, order)): each
+    run() launches D once over every tile of the frame into dpairs
+    [4, M, 9], writing its tile schedule into `order` first."""
     _check_fields(fields, abins, config)
     gx, gy = config.grid_size(width, height)
     dev = fields.device
@@ -195,10 +219,11 @@ def prepare_bwd(fields, abins, width, height, config, composite, merge,
     if pmax >= m or kmax > kc:
         raise ValueError("ordered lists index outside the entries or k_cap")
     dpairs = torch.zeros((4, m, GRAD_ROW), dtype=torch.float32, device=dev)
+    order = torch.empty((gx * gy,), dtype=torch.int32, device=dev)
     ins = (fields, abins.sorted_gidx, merge.ordered, merge.k_used,
-           merge.group, composite.final_log_t, composite.last_idx, d_rgb,
-           d_alpha)
-    fn, err_str = _kernel_fn("anchor_bwd", 9, 6, 2, 1)
+           merge.group, order, composite.final_log_t, composite.last_idx,
+           d_rgb, d_alpha)
+    fn, err_str = _kernel_fn("anchor_bwd", 10, 6, 2, 1)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run():
@@ -212,14 +237,14 @@ def prepare_bwd(fields, abins, width, height, config, composite, merge,
                                f"({err_str(err).decode()})")
         launches_bwd += 1
 
-    return run, dpairs
+    return run, (dpairs, order)
 
 
 def _launch_bwd(fields, abins, width, height, config, composite, merge,
                 d_rgb, d_alpha) -> torch.Tensor:
     """Kernel D over every tile of the frame."""
-    run, dpairs = prepare_bwd(fields, abins, width, height, config,
-                              composite, merge, d_rgb, d_alpha)
+    run, (dpairs, _) = prepare_bwd(fields, abins, width, height, config,
+                                   composite, merge, d_rgb, d_alpha)
     run()
     return dpairs
 

@@ -18,10 +18,10 @@ Both kernels run the tiles heavy first (each launch first writes the
 schedule, `csrc/tile_order.cuh`) and skip the 8x4 pixel blocks a pair
 cannot reach (`csrc/footprint.cuh`). `prepare_fwd` and `prepare_bwd` do a
 launch's checks and allocations and return a callable that only launches,
-so a kernel can be timed alone. `tile_order` and `footprint_blocks` are
-the plain twins of the schedule and of the cull, and `cull_stats` holds
-the cull against the twin's power; nothing on the render or training path
-calls them.
+so a kernel can be timed alone. `heavy_first_order` (with `tile_order` for
+A and B) and `footprint_blocks` are the plain twins of the schedule and of
+the cull, and `cull_stats` holds the cull against the twin's power; nothing
+on the render or training path calls them.
 """
 
 from __future__ import annotations
@@ -108,16 +108,26 @@ def _check_inputs(fields, bins, width, height, config):
 ORDER_CLASSES = 2048    # csrc/tile_order.cuh: kOrderClasses (held in tests)
 
 
-def tile_order(bins: TileBins, config: RenderConfig) -> torch.Tensor:
-    """The plain twin of the heavy-first schedule kernels A and B write
+def order_class(weight: torch.Tensor, cap: int) -> torch.Tensor:
+    """`csrc/tile_order.cuh::order_class`: the weight capped at `cap`, in
+    ORDER_CLASSES equal bins once cap reaches ORDER_CLASSES."""
+    w = torch.clamp(weight.to(torch.int64), min=0, max=cap)
+    return w * (ORDER_CLASSES - 1) // cap if cap >= ORDER_CLASSES else w
+
+
+def heavy_first_order(weight: torch.Tensor, cap: int) -> torch.Tensor:
+    """The plain twin of the heavy-first schedule the kernels write
     (`csrc/tile_order.cuh`): int32 tile ids in descending class of their
-    capped pair count, ties in tile order (the kernel orders a class's
-    tiles in any order)."""
-    k_cap = config.max_per_tile
-    count = torch.clamp(bins.tile_count.to(torch.int64), min=0, max=k_cap)
-    if k_cap >= ORDER_CLASSES:
-        count = count * (ORDER_CLASSES - 1) // k_cap
-    return torch.argsort(count, descending=True, stable=True).to(torch.int32)
+    weight, ties in tile order (the kernel orders a class's tiles in any
+    order). Kernel D's weight is its ordered lists' length `k_used`, capped
+    at k_cap."""
+    return torch.argsort(order_class(weight, cap), descending=True,
+                         stable=True).to(torch.int32)
+
+
+def tile_order(bins: TileBins, config: RenderConfig) -> torch.Tensor:
+    """Kernels A's and B's schedule: the capped pair count."""
+    return heavy_first_order(bins.tile_count, config.max_per_tile)
 
 
 def _device_of(fields: torch.Tensor) -> str:

@@ -310,6 +310,52 @@ def test_merge_edge_tiles_and_groups():
         assert int(pos.unique().numel()) == k
 
 
+def _port_scene(kind):
+    """Port-only scenes (no JAX) for the binning's order invariant."""
+    from gaussian_splatting_web_tpu_torch.bench_lib import (
+        make_adversarial_scene,
+        make_scene,
+    )
+    if kind == "adversarial":
+        return make_adversarial_scene(device="cpu"), 96, 64
+    cloud = make_scene(800, seed=1, sh_degree=0,
+                       log_scale_range=(-3.5, -1.5), device="cpu")
+    if kind == "crowded":
+        cloud.xyz = cloud.xyz * 0.15
+    elif kind == "ties":     # every splat on z = 0: one depth for all
+        cloud.xyz[:, 2] = 0.0
+    return cloud, W, H
+
+
+@pytest.mark.parametrize("kind", ["random", "crowded", "adversarial",
+                                  "ties"])
+def test_anchor_segments_ascend_in_depth_then_position(kind):
+    """The invariant kernel C's merge relies on: every anchor tile's
+    segment of the sorted entries ascends in (sortable depth, position), so
+    each of a tile's four runs (two ranges x two columns) is already sorted
+    by the merge key (depth, union lane) and the kernel merges runs instead
+    of sorting. Exact depth ties keep slot order (the stable sort)."""
+    from gaussian_splatting_web_tpu_torch.core.camera import default_camera
+    from gaussian_splatting_web_tpu_torch.ops.projection import (
+        project_gaussians,
+    )
+    cloud, w, h = _port_scene(kind)
+    camera = default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    abins = anchor.bin_splats_anchor(project_gaussians(cloud, camera, w, h,
+                                                       CFG), w, h, CFG)
+    live = int(abins.starts[-1])
+    tile = torch.searchsorted(abins.starts.long(), torch.arange(live),
+                              right=True) - 1
+    depth = abins.sorted_depth[:live].long() & 0xFFFFFFFF
+    same = tile[1:] == tile[:-1]
+    assert bool((depth[1:] >= depth[:-1])[same].all())
+    # exact ties keep slot order, as the stable sort promises
+    tie = (depth[1:] == depth[:-1]) & same
+    slot = abins.sorted_slot[:live]
+    assert bool((slot[1:] > slot[:-1])[tie].all())
+    assert (int(tie.sum()) > 100) if kind == "ties" else (live > 100)
+
+
 @pytest.mark.parametrize("sh_degree", [0, 3])
 def test_render_anchor_matches_jax_render(sh_degree):
     """`render` with binning='anchor' (the plain C and D on the CPU)

@@ -1,6 +1,6 @@
-"""Kernels A and B on the card vs their plain PyTorch twins, at small
-sizes (including the adversarial scene of their footprint cull), and the
-launches of a render and of a training step.
+"""Kernels A-D on the card vs their plain PyTorch twins, at small sizes
+(including the adversarial scene of their footprint cull), their tile
+schedules, and the launches of a render and of a training step.
 
 Marked `gpu`: every test skips without a CUDA device. The file imports
 neither jax nor tests/conftest.py, so it runs on the machine with the card:
@@ -245,12 +245,12 @@ def test_train_step_launches_each_kernel_once(device):
 ACFG = CFG.replace(binning="anchor")
 
 
-def _crowded_scene():
+def _crowded_scene(seed=9, spread=0.15):
     """2500 small splats over the central tiles: ranges overrun their
     aligned cover and tiles hold more than k_cap candidates."""
-    cloud = make_scene(2500, seed=9, sh_degree=0,
+    cloud = make_scene(2500, seed=seed, sh_degree=0,
                        log_scale_range=(-3.5, -1.5), device="cpu")
-    cloud.xyz = cloud.xyz * 0.15
+    cloud.xyz = cloud.xyz * spread
     return cloud
 
 
@@ -295,10 +295,24 @@ def _anchor_vs_plain(cloud, w, h, dev, cfg=ACFG):
     return abins, merge
 
 
-@pytest.mark.parametrize("scene", ["random", "opaque", "crowded"])
+@pytest.mark.parametrize("scene", ["random", "opaque", "crowded",
+                                   "adversarial", "column-overrun"])
 def test_anchor_kernels_match_plain(device, scene):
     from gaussian_splatting_web_tpu_torch.ops import anchor
 
+    if scene == "column-overrun":
+        # a range A splits its columns past its cover while range B holds
+        # candidates below that split (max_per_tile 64: 512-lane covers)
+        cfg = ACFG.replace(max_per_tile=64)
+        abins, _ = _anchor_vs_plain(_crowded_scene(seed=1, spread=0.25), 64,
+                                    48, device, cfg=cfg)
+        assert bool(anchor.split_overruns(abins, 4, 3, cfg).any())
+        return
+    if scene == "adversarial":
+        abins, _ = _anchor_vs_plain(make_adversarial_scene(device="cpu"), 96,
+                                    64, device)
+        assert int(abins.overflow) > 0        # splats past max_dup
+        return
     cloud = {"random": lambda: _scene(0), "crowded": _crowded_scene,
              "opaque": lambda: _scene(5, n=40, opaque=True)}[scene]()
     abins, merge = _anchor_vs_plain(cloud, 64, 48, device)
@@ -338,18 +352,22 @@ def test_anchor_grads_flow_through_kernels(device):
 
 
 def test_anchor_kernel_shared_memory_caps(device):
-    """A cap whose merge keys need more than 48 KB of shared memory takes
-    the opt-in (max_per_tile=2048: 8,192 keys, 74.7 KB) and still matches
-    the plain version; one past the 227 KB a block can hold is refused."""
+    """A cap whose merge needs more than 48 KB of shared memory takes the
+    opt-in (max_per_tile=2304: 5,632 union keys and a 2,304-lane ordered
+    list, 54,272 bytes) and still matches the plain version; the first cap
+    past the 227 KB a block can hold (11,264: 233,472 bytes) is refused."""
     from gaussian_splatting_web_tpu_torch.ops import anchor
     from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
 
-    cfg = ACFG.replace(max_per_tile=2048)
+    cfg = ACFG.replace(max_per_tile=2304)
     assert anchor_cuda.merge_smem_bytes(cfg) > 48 * 1024
     _, merge = _anchor_vs_plain(_crowded_scene(), 64, 48, device, cfg=cfg)
     assert int(merge.k_used.max()) == anchor.k_cap(cfg)
 
-    big = ACFG.replace(max_per_tile=8192)
+    big = ACFG.replace(max_per_tile=11264)
+    assert anchor_cuda.merge_smem_bytes(big) > anchor_cuda.MAX_SMEM_BYTES
+    assert anchor_cuda.merge_smem_bytes(
+        big.replace(max_per_tile=11008)) <= anchor_cuda.MAX_SMEM_BYTES
     camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
     splats = project_gaussians(_scene(0).to(device), camera.to(device), 64,
                                48, big)
@@ -357,3 +375,37 @@ def test_anchor_kernel_shared_memory_caps(device):
     with pytest.raises(ValueError, match="shared memory"):
         anchor_cuda.composite_anchor(pack_splat_fields(splats), abins, 64,
                                      48, big)
+
+
+def test_anchor_kernels_schedule_tiles_heavy_first(device):
+    """C and D write their heavy-first schedules before they run: each a
+    permutation of the tiles whose weights fall along it as in the plain
+    twins (C: the union positions its merge reads; D: the ordered lists'
+    lengths), on the crowded scene whose weights hit both caps."""
+    from gaussian_splatting_web_tpu_torch.ops import anchor
+    from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
+
+    w, h = 64, 48
+    gx, gy = ACFG.grid_size(w, h)
+    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    splats = project_gaussians(_crowded_scene().to(device), camera.to(device),
+                               w, h, ACFG)
+    abins = anchor.bin_splats_anchor(splats, w, h, ACFG)
+    fields = pack_splat_fields(splats)
+    run, (fwd, merge, order_c) = anchor_cuda.prepare_fwd(fields, abins, w, h,
+                                                         ACFG)
+    run()
+    run_d, (_, order_d) = anchor_cuda.prepare_bwd(
+        fields, abins, w, h, ACFG, fwd, merge,
+        torch.ones((h, w, 3), device=device), torch.ones((h, w), device=device))
+    run_d()
+    torch.cuda.synchronize()
+    weight_c, _ = anchor_cuda.schedule_weight(abins, gx, gy, ACFG)
+    kc = anchor.k_cap(ACFG)
+    for got, weight, want in (
+            (order_c, weight_c, anchor_cuda.tile_order(abins, gx, gy, ACFG)),
+            (order_d, merge.k_used,
+             raster_cuda.heavy_first_order(merge.k_used, kc))):
+        assert sorted(got.tolist()) == list(range(gx * gy))
+        assert torch.equal(weight[got.long()], weight[want.long()])
+    assert int(merge.k_used.max()) == kc

@@ -1,6 +1,6 @@
-"""The footprint cull of kernels A and B (`csrc/footprint.cuh`) through its
+"""The footprint cull of kernels A-D (`csrc/footprint.cuh`) through its
 plain mirror `ops/cuda/raster.py::footprint_blocks`, and the heavy-first
-tile order.
+tile orders (A, B and D by count, C by the union its merge reads).
 
 The cull may skip a warp's 8x4 pixel block for a pair only when no pixel
 of the block reaches the 1/255 cutoff. Each case puts seeded or
@@ -21,10 +21,13 @@ import torch
 from gaussian_splatting_web_tpu_torch.bench_lib import make_adversarial_scene
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.core.camera import default_camera
+from gaussian_splatting_web_tpu_torch.ops import anchor
+from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
 from gaussian_splatting_web_tpu_torch.ops.projection import project_gaussians
 from gaussian_splatting_web_tpu_torch.ops.rasterize import (
     FIELD_ROW,
+    GRAD_ROW,
     pack_splat_fields,
 )
 from gaussian_splatting_web_tpu_torch.ops.sort import TileBins, bin_splats
@@ -161,10 +164,14 @@ def _constexpr(header, name):
     ("footprint.cuh", "kCullWiden", raster_cuda.CULL_WIDEN),
     ("footprint.cuh", "kCullPad", raster_cuda.CULL_PAD),
     ("tile_order.cuh", "kOrderClasses", raster_cuda.ORDER_CLASSES),
+    ("tile_walk.cuh", "kRow", FIELD_ROW),
+    ("tile_walk.cuh", "kGrad", GRAD_ROW),
+    ("tile_walk.cuh", "kFwdBatch", anchor_cuda.FWD_BATCH),
+    ("anchor_fwd.cu", "kChunk", anchor.KCL),
 ])
 def test_mirror_constants_match_headers(header, name, mirror):
-    """The plain mirrors in ops/cuda/raster.py copy the kernels' constants;
-    an edit to a header must reach the copy."""
+    """The port's Python mirrors copy the kernels' constants; an edit to a
+    kernel source must reach the copy."""
     assert _constexpr(header, name) == mirror
 
 
@@ -220,3 +227,25 @@ def test_tile_order_is_heavy_first_permutation():
     capped = torch.clamp(bins.tile_count, max=cfg.max_per_tile)[order.long()]
     assert bool((capped[:-1] >= capped[1:]).all())
     assert int(bins.tile_count.max()) > cfg.max_per_tile   # the cap binds
+
+
+def test_anchor_tile_order_is_heavy_first_permutation():
+    """Kernel C's schedule twin: a permutation of the tiles in descending
+    union weight (the positions each tile's merge reads), classes binned
+    once the cap passes the class count; on the adversarial scene."""
+    w, h = 96, 64
+    cloud = make_adversarial_scene(device="cpu")
+    camera = default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    for cfg in (RenderConfig(binning="anchor", max_per_tile=64),
+                RenderConfig(binning="anchor")):
+        gx, gy = cfg.grid_size(w, h)
+        abins = anchor.bin_splats_anchor(
+            project_gaussians(cloud, camera, w, h, cfg), w, h, cfg)
+        order = anchor_cuda.tile_order(abins, gx, gy, cfg)
+        assert order.dtype == torch.int32
+        assert sorted(order.tolist()) == list(range(gx * gy))
+        weight, cap = anchor_cuda.schedule_weight(abins, gx, gy, cfg)
+        cls = raster_cuda.order_class(weight, cap)
+        assert bool((cls[order.long()][:-1] >= cls[order.long()][1:]).all())
+        assert int(weight.max()) > 0
+    assert cap >= raster_cuda.ORDER_CLASSES     # the default caps bin them
