@@ -40,7 +40,9 @@ printing one line; any failure raises and exits non-zero:
              that `render` made of make_scene(1M, seed 1): 30 iterations,
              one forced densify round, SH bands unlocked on the way; A and
              B once per iteration, finite losses whose last five average
-             below the first five, a changed alive count; ms/iteration
+             below the first five, a changed alive count; ms/iteration;
+             the views are written as a capture (PNGs, cameras.json) and
+             the trained scene as a PLY for phase 17
   9 cli      `cli train --device cuda` on a small synthetic capture (PNGs
              and cameras.json written here) writes a PLY `read_ply` loads
 
@@ -70,6 +72,26 @@ default caps: 1,536-position covers, k_cap 1024):
              finite parameter gradients; `ViewerApp` answers two events
  14 anchor   `train()` as phase 8 with binning='anchor': C and D once per
              iteration, finite losses that fall; ms/iteration
+
+Tile sharding (A's and B's tile-list entries E-A and E-B, `parallel/`):
+
+ 15 tiles    at 1080p, the tiles of 4 shards (`_padded_tile_ids(8160, 4,
+             32)`, padding turned into the empty sentinel) composited by
+             E-A one shard after another: stitched, equal to full-frame A's
+             image and residual bit for bit; E-B with each shard's slice of
+             one cotangent: rows that add up to full-frame B's bit for bit;
+             the same on the opaque, ragged and adversarial scenes (5
+             shards of 2-tile chunks); on each, E-A against the list twin
+             by the image rule and E-B against it by the gradient rule; E-A's
+             schedule of list positions heavy first; E-A and E-B timed over
+             one shard's list beside full-frame A and B in the same phase
+ 16 sharded  a one-rank NCCL group (`file://` store): `render_sharded` equal
+             to phase 4's `render` bit for bit, one E-A launch; one
+             `make_sharded_train_step` step on two 1080p views: loss equal
+             to the unsharded loss (rel 1e-5), gradients by the gradient
+             rule, E-A and E-B twice each and no other kernel
+ 17 eval     `cli eval --device cuda` on phase 8's capture and trained PLY
+             prints its JSON line with a finite PSNR
 
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
@@ -105,6 +127,11 @@ read, every tile's two covers, and the 4-byte depth of each touched
 position) and its ordered-list outputs; its merge's compares are not
 counted as operations. D's bytes count the ordered lists it reads and the
 rows it writes (36 bytes per kept pair), not the zeroed array.
+E-A's and E-B's bound counts the listed tiles only: their pairs' ids,
+their splats' 48-byte rows (each splat once), the list with its starts
+and counts, and the slots written (rgba, log-T and last index); E-B also
+reads the cotangent and writes 36 bytes per listed pair. Their steps are
+A's and B's over those tiles.
 
 Prints the card line, a JSON line of kernel results, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -123,6 +150,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaussian_splatting_web_tpu_torch.bench_lib import (
     grad_parity,
@@ -153,9 +181,24 @@ from gaussian_splatting_web_tpu_torch.ops.rasterize import (
     render,
 )
 from gaussian_splatting_web_tpu_torch.ops.sort import bin_splats
+from gaussian_splatting_web_tpu_torch.parallel import (
+    make_mesh,
+    make_sharded_train_step,
+    render_sharded,
+)
+from gaussian_splatting_web_tpu_torch.parallel.render_sharded import (
+    shard_tile_ids,
+)
+from gaussian_splatting_web_tpu_torch.train.checkpoint import save_ply
+from gaussian_splatting_web_tpu_torch.train.densify import compact
+from gaussian_splatting_web_tpu_torch.train.loss import photometric_loss
 from gaussian_splatting_web_tpu_torch.train.train_loop import (
     TrainLoopConfig,
     train,
+)
+from gaussian_splatting_web_tpu_torch.train.trainer import (
+    TrainState,
+    make_optimizer,
 )
 from gaussian_splatting_web_tpu_torch.utils.image import (
     encode_png,
@@ -175,6 +218,7 @@ CPU_PAIRS, CPU_OVERFLOW = 2_150_328, 13
 ANCHOR_PAIRS, ANCHOR_OVERFLOW, ANCHOR_TRUNCATED = 2_150_377, 248, 264
 ATOL, MAX_BAD_FRAC, LOG_T_TOL = 2e-4, 2e-4, 1e-4
 GRAD_EXTRA = 2            # knife-edge outliers allowed on top of 1e-5 of n
+TILE_SHARDS, TILE_CHUNK = 4, 32   # phase 15's tile deal (the default chunk)
 KERNELS = {
     "raster_fwd": ("gaussian_splatting_web_tpu_torch/csrc/raster_fwd.cu",
                    "gaussian_splatting_web_tpu/ops/pallas/raster.py:219"),
@@ -184,7 +228,17 @@ KERNELS = {
                    "gaussian_splatting_web_tpu/ops/pallas/anchor.py:639"),
     "anchor_bwd": ("gaussian_splatting_web_tpu_torch/csrc/anchor_bwd.cu",
                    "gaussian_splatting_web_tpu/ops/pallas/anchor.py:928"),
+    # A's and B's tile-list entries (E), in A's and B's sources
+    "raster_fwd_tiles": (
+        "gaussian_splatting_web_tpu_torch/csrc/raster_fwd.cu",
+        "gaussian_splatting_web_tpu/ops/pallas/raster.py:509 "
+        "composite_tiles_pallas(tile_ids=)"),
+    "raster_bwd_tiles": (
+        "gaussian_splatting_web_tpu_torch/csrc/raster_bwd.cu",
+        "gaussian_splatting_web_tpu/ops/pallas/raster_bwd.py:449 "
+        "backward_pair_grads(tile_ids=)"),
 }
+SOURCES = ("raster_fwd", "raster_bwd", "anchor_fwd", "anchor_bwd")
 # peaks of one H100 SXM (NVIDIA data sheet; SFU: 16 results per SM per
 # clock at the 1.98 GHz boost clock)
 HBM_BYTES_S, FP32_FLOPS_S, SFU_OPS_S = 3.35e12, 67e12, 132 * 16 * 1.98e9
@@ -197,9 +251,10 @@ HBM_BYTES_S, FP32_FLOPS_S, SFU_OPS_S = 3.35e12, 67e12, 132 * 16 * 1.98e9
 # reciprocal of 1 − α (4 SFU)
 STEP_FP32 = 11
 PASS_FP32 = {"raster_fwd": 12, "raster_bwd": 35, "anchor_fwd": 12,
-             "anchor_bwd": 35}
+             "anchor_bwd": 35, "raster_fwd_tiles": 12,
+             "raster_bwd_tiles": 35}
 PASS_SFU = {"raster_fwd": 3, "raster_bwd": 4, "anchor_fwd": 3,
-            "anchor_bwd": 4}
+            "anchor_bwd": 4, "raster_fwd_tiles": 3, "raster_bwd_tiles": 4}
 # one footprint test (csrc/footprint.cuh): 27 mul, 22 add, 36 compares and
 # 6 abs in FP32; two divisions and two square roots on the SFUs
 FOOT_FP32, FOOT_SFU = 91, 4
@@ -215,13 +270,17 @@ def check(cond, msg):
 
 
 def launch_counts():
-    """Launches of kernels A, B, C and D since the last reset."""
+    """Launches of kernels A, B, C, D and of A's and B's tile-list entries
+    (E-A, E-B) since the last reset."""
     return {"A": raster_cuda.launches, "B": raster_cuda.launches_bwd,
-            "C": anchor_cuda.launches, "D": anchor_cuda.launches_bwd}
+            "C": anchor_cuda.launches, "D": anchor_cuda.launches_bwd,
+            "E-A": raster_cuda.launches_tiles,
+            "E-B": raster_cuda.launches_tiles_bwd}
 
 
 def reset_counts():
     raster_cuda.launches = raster_cuda.launches_bwd = 0
+    raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
     anchor_cuda.launches = anchor_cuda.launches_bwd = 0
 
 
@@ -300,20 +359,23 @@ def small_scenes(dev):
              -6.0)]
 
 
-def work(fields, bins, comp, w, h, cfg):
-    """Pair-pixel steps of this frame, for A and B: `steps` walked, of
-    which `passed` pass the cutoff, and the (pair, tile)s some pixel of
-    the tile walks to, `pairs`. A walks each pixel up to and including its
-    early-exit pair (the whole segment if it never saturates); B walks
-    each pixel up to its last contributing pair."""
+def work(fields, bins, comp, w, h, cfg, tile_ids=None):
+    """Pair-pixel steps of this frame (of the real tiles of `tile_ids`,
+    default all), for A and B: `steps` walked, of which `passed` pass the
+    cutoff, and the (pair, tile)s some pixel of the tile walks to, `pairs`.
+    A walks each pixel up to and including its early-exit pair (the whole
+    segment if it never saturates); B walks each pixel up to its last
+    contributing pair."""
     gx, gy = cfg.grid_size(w, h)
     ts = cfg.tile_size
     dev = fields.device
-    tile_ids = torch.arange(gx * gy, device=dev)
+    if tile_ids is None:
+        tile_ids = torch.arange(gx * gy, device=dev)
+    tile_ids = tile_ids[tile_ids < gx * gy].long()
     inside = rasterize.tile_major(torch.ones((h, w, 1), device=dev), gx, gy,
-                                  ts)[..., 0] > 0                 # [T, P]
+                                  ts)[tile_ids, :, 0] > 0         # [T, P]
     last = rasterize.tile_major(comp.last_idx[..., None], gx, gy, ts,
-                                fill=-1)[..., 0]
+                                fill=-1)[tile_ids, :, 0]
     log_eps = math.log(cfg.transmittance_eps)
     totals = torch.zeros(6, dtype=torch.float64, device=dev)
     starts, counts, spans = rasterize._chunks(bins, tile_ids, cfg)
@@ -380,10 +442,10 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    build.load_all(KERNELS)
+    build.load_all(SOURCES)
     dt = time.perf_counter() - t0
     parts = []
-    for name in KERNELS:
+    for name in SOURCES:
         log = build.build_logs.get(name)
         ptxas = " ".join(ln.split("ptxas info    :")[-1].strip()
                          for ln in (log or "").splitlines()
@@ -535,6 +597,260 @@ def phase_backward(dev, cfg, full):
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "fold_ms": fold_ms}
+
+
+def shard_strips(t, shards=TILE_SHARDS, chunk=TILE_CHUNK, dev="cuda"):
+    """Each tile shard's strip of `_padded_tile_ids(t, shards, chunk)`,
+    its padding turned into the empty sentinel t."""
+    return [shard_tile_ids(t, shards, chunk, s).to(dev)
+            for s in range(shards)]
+
+
+def tiles_vs_full(fields, bins, w, h, cfg, what, shards=TILE_SHARDS,
+                  chunk=TILE_CHUNK, twins=True):
+    """Kernel A's and B's tile-list entries over the strips of `shards`
+    tile shards, run in turn: the stitched E-A tiles equal full-frame A's
+    image and residual bit for bit, the sentinel slots are empty, and the
+    strips' E-B rows (one cotangent, cut into the strips) add up to
+    full-frame B's rows bit for bit. With `twins`, each strip's E-A against
+    the list twin by the image rule (pixels inside the frame) and its E-B
+    against the list twin after the fold by the gradient rule → findings,
+    with the first strip's inputs."""
+    dev = fields.device
+    gx, gy = cfg.grid_size(w, h)
+    t = gx * gy
+    full = raster_cuda.composite_image(fields, bins, w, h, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_rgb = torch.randn((h, w, 3), generator=gen, device=dev)
+    d_alpha = torch.randn((h, w), generator=gen, device=dev)
+    rows_full = raster_cuda.composite_backward(fields, bins, w, h, cfg, full,
+                                               d_rgb, d_alpha)
+    cot = rasterize.tile_major(torch.cat([d_rgb, d_alpha[..., None]], -1),
+                               gx, gy, 16)
+    inside = rasterize.tile_major(torch.ones((h, w, 1), device=dev), gx, gy,
+                                  16)[..., 0] > 0
+    stitched = torch.zeros((t, 256, 6), device=dev)
+    rows = torch.zeros_like(rows_full)
+    n = fields.shape[0]
+    found = {"fwd_err": 0.0, "bad_frac": 0.0, "p99": 0.0, "bwd_err": 0.0,
+             "sentinels": 0}
+    first = None
+    for ids in shard_strips(t, shards, chunk, dev):
+        real = ids < t
+        out = raster_cuda.composite_tiles_list(fields, bins, ids, w, h, cfg)
+        check(not bool(out.rgba[~real].any()) and bool(
+            (out.last_idx[~real] == -1).all()),
+            f"{what}: a sentinel slot is not empty")
+        found["sentinels"] += int((~real).sum())
+        stitched[ids[real].long()] = torch.cat(
+            [out.rgba, out.final_log_t[..., None],
+             out.last_idx[..., None].float()], -1)[real]
+        d_list = torch.where(real[:, None, None],
+                             cot[ids.clamp(max=t - 1).long()], 0.0)
+        part = raster_cuda.composite_tiles_backward(
+            fields, bins, ids, w, h, cfg, out.final_log_t, out.last_idx,
+            d_list)
+        rows += part
+        if first is None:
+            first = (ids, out, d_list, part)
+        if not twins:
+            continue
+        rgba, _, _ = rasterize.composite_tiles(fields, bins, ids, gx, cfg)
+        keep = inside[ids.clamp(max=t - 1).long()] & real[:, None]
+        diff = (out.rgba - rgba).abs().amax(-1)[keep]
+        bad = (diff > ATOL).float().mean().item()
+        check(bad <= MAX_BAD_FRAC, f"{what}: E-A vs its twin: {bad:.2e} of "
+              f"the pixels differ > {ATOL}")
+        found["fwd_err"] = max(found["fwd_err"], diff.max().item())
+        found["bad_frac"] = max(found["bad_frac"], bad)
+        want = rasterize.composite_tiles_backward_plain(
+            fields, bins, ids, w, h, cfg, out.last_idx, d_list)
+        g_got = fold_pair_grads(part, bins, n)
+        g_want = fold_pair_grads(want, bins, n)
+        stats = grad_parity(g_got.T, g_want.T)
+        check(grad_parity_ok(stats, GRAD_EXTRA),
+              f"{what}: E-B vs its twin outside the gradient rule: {stats}")
+        found["p99"] = max(found["p99"], stats["p99"])
+        found["bwd_err"] = max(found["bwd_err"],
+                               (g_got - g_want).abs().max().item())
+    img = rasterize.assemble_image(stitched, w, h, gx, gy)
+    check(torch.equal(img[..., :3], full.rgb)
+          and torch.equal(img[..., 3], full.alpha)
+          and torch.equal(img[..., 4], full.final_log_t)
+          and torch.equal(img[..., 5].int(), full.last_idx),
+          f"{what}: the stitched E-A tiles differ from full-frame A")
+    check(torch.equal(rows, rows_full) and rows.abs().max().item() > 0,
+          f"{what}: the strips' E-B rows do not add up to full-frame B's")
+    return found, first
+
+
+def phase_tiles(dev, cfg, full):
+    """Phase 15: E-A and E-B over 4 tile shards at 1080p and on the small
+    scenes; both timed over one shard's list beside full-frame A and B."""
+    findings = {}
+    for what, scene, w, h, z in small_scenes(dev):
+        camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
+        fields, bins = binned(scene, camera, w, h, cfg)
+        findings[what], _ = tiles_vs_full(fields, bins, w, h, cfg, what,
+                                          shards=5, chunk=2)
+    fields, bins, comp, _ = full
+    findings["1080p"], (ids, out, d_list, dpairs) = tiles_vs_full(
+        fields, bins, W, H, cfg, "1080p")
+    d_rgb = torch.ones((H, W, 3), device=dev)
+    d_alpha = torch.ones((H, W), device=dev)
+    times = {
+        "E-A": kernel_ms(raster_cuda.prepare_fwd_tiles(fields, bins, ids, W,
+                                                       H, cfg)),
+        "E-B": kernel_ms(raster_cuda.prepare_bwd_tiles(
+            fields, bins, ids, W, H, cfg, out.final_log_t, out.last_idx,
+            d_list)),
+        "A": kernel_ms(raster_cuda.prepare_fwd(fields, bins, W, H, cfg)),
+        "B": kernel_ms(raster_cuda.prepare_bwd(fields, bins, W, H, cfg, comp,
+                                               d_rgb, d_alpha)),
+    }
+    run, (_, order) = raster_cuda.prepare_fwd_tiles(fields, bins, ids, W, H,
+                                                    cfg)
+    run()
+    capped = torch.clamp(torch.nn.functional.pad(bins.tile_count, (0, 1)),
+                         max=cfg.max_per_tile)[ids.long()]
+    schedule_check(order, capped, cfg.max_per_tile, "E-A")
+    gx, _ = cfg.grid_size(W, H)
+    plain = {
+        "E-A": median_ms(lambda: rasterize.composite_tiles(
+            fields, bins, ids, gx, cfg), 7, warmup=1),
+        "E-B": median_ms(lambda: rasterize.composite_tiles_backward_plain(
+            fields, bins, ids, W, H, cfg, out.last_idx, d_list), 7,
+            warmup=1),
+    }
+    steps = work(fields, bins, comp, W, H, cfg, tile_ids=ids)
+    real = ids[ids < cfg.num_tiles(W, H)].long()
+    starts = bins.tile_start[real].long()
+    counts = torch.clamp(bins.tile_count[real], max=cfg.max_per_tile).long()
+    n_pairs = int(counts.sum())
+    pos = torch.repeat_interleave(starts, counts) + (
+        torch.arange(n_pairs, device=dev)
+        - torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts))
+    splats = int(torch.unique(bins.sorted_gidx[pos]).numel())
+    n_ids = ids.shape[0]
+    # inputs: the listed tiles' pair ids, their splats' rows, the list and
+    # its starts and counts; outputs: the slots (rgba, log-T, last index)
+    bytes_in = n_pairs * 4 + splats * 48 + n_ids * 12
+    nbytes = {"E-A": bytes_in + n_ids * 256 * 24,
+              "E-B": bytes_in + n_ids * 256 * 24 + n_pairs * 36}
+    results = {}
+    for name, key, wk in (("raster_fwd_tiles", "E-A", steps["A"]),
+                          ("raster_bwd_tiles", "E-B", steps["B"])):
+        bound_ms, bound_by, step_ms = bound(name, wk, nbytes[key])
+        results[name] = {
+            "max_abs_err": findings["1080p"]["fwd_err" if key == "E-A"
+                                             else "bwd_err"],
+            "ms": times[key], "plain_ms": plain[key], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "work": work_line(wk, nbytes[key], bound_ms, bound_by, step_ms,
+                              "past the cutoff" if key == "E-A"
+                              else "contributing")}
+    print(f"[15 tiles] E-A and E-B over {TILE_SHARDS} tile shards "
+          f"(`_padded_tile_ids(T, {TILE_SHARDS}, {TILE_CHUNK})`, padding → "
+          "the empty sentinel), run in turn: stitched E-A equal to A bit "
+          "for bit (image and residual), E-B rows summed equal to B's bit "
+          "for bit, on "
+          + ", ".join(findings) + "; against the list twins: "
+          + "; ".join(f"{k}: E-A max_abs_err {v['fwd_err']:.3e}, "
+                      f">{ATOL} on {v['bad_frac']:.2e}, E-B p99 "
+                      f"{v['p99']:.2e}, max_abs_err {v['bwd_err']:.3e}, "
+                      f"{v['sentinels']} sentinel slots"
+                      for k, v in findings.items())
+          + f"; one shard's list at 1080p ({n_ids} positions, "
+          f"{int(real.numel())} tiles, {n_pairs} pairs, {splats} splats): "
+          f"kernel E-A {times['E-A']:.3f} ms, E-B {times['E-B']:.3f} ms, "
+          f"full-frame A {times['A']:.3f} ms, B {times['B']:.3f} ms in the "
+          f"same phase; plain E-A {plain['E-A']:.3f} ms, E-B "
+          f"{plain['E-B']:.3f} ms; E-A "
+          + results["raster_fwd_tiles"]["work"] + "; E-B "
+          + results["raster_bwd_tiles"]["work"])
+    return results
+
+
+def phase_sharded(dev, cloud, cfg, frame):
+    """Phase 16: a one-rank NCCL group. `render_sharded` equals `render`
+    (phase 4's frame) bit for bit; one `make_sharded_train_step` step on
+    two 1080p views against the unsharded loss and gradients → E's
+    launches in that step."""
+    torch.cuda.set_device(torch.cuda.current_device())
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            camera = bench_camera(W, H, dev)
+            reset_counts()
+            with torch.no_grad():
+                rgb, alpha = render_sharded(cloud, camera, W, H, mesh, cfg)
+            torch.cuda.synchronize()
+            render_counts = launch_counts()
+            check(torch.equal(rgb, frame), "render_sharded on one rank "
+                  "differs from render")
+            check(render_counts["E-A"] == 1 and render_counts["A"] == 0,
+                  f"render_sharded launched {render_counts}")
+
+            cams = [orbit_camera(i, 8, W, H).to(dev) for i in range(2)]
+            with torch.no_grad():
+                targets = torch.stack([0.8 * render(cloud, c, W, H, cfg)[0]
+                                       for c in cams])
+            ref = GaussianModel.from_cloud(cloud)
+            ref_loss = sum(photometric_loss(
+                render(ref.to_cloud(), c, W, H, cfg)[0], tgt)
+                for c, tgt in zip(cams, targets)) / 2
+            ref_loss.backward()
+            ref_loss = ref_loss.detach()
+            model = GaussianModel.from_cloud(cloud)
+            state = TrainState(model, make_optimizer(model))
+            step = make_sharded_train_step(W, H, mesh, cfg)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, cams, targets)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+        finally:
+            dist.destroy_process_group()
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    check(rel <= 1e-5, f"sharded loss {float(loss)} vs {float(ref_loss)}")
+    names = [f for f in PARAMS if getattr(model, f).numel()]
+    got = [getattr(model, f).grad for f in names]
+    want = [getattr(ref, f).grad for f in names]
+    stats = grad_parity(got, want)
+    check(grad_parity_ok(stats, GRAD_EXTRA),
+          f"sharded gradients outside the gradient rule: {stats}")
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(counts == {**{k: 0 for k in counts}, "E-A": 2, "E-B": 2},
+          f"a sharded step on two views launched {counts}")
+    print(f"[16 sharded] one-rank NCCL mesh {mesh.shape}: render_sharded "
+          f"equal to render bit for bit (launches "
+          + " ".join(f"{k}={v}" for k, v in render_counts.items() if v)
+          + f"); one sharded step on two {W}x{H} views: loss "
+          f"{float(loss):.6f} vs unsharded {float(ref_loss):.6f} (rel "
+          f"{rel:.2e}), gradients p99 {stats['p99']:.2e}, "
+          f"{'equal bit for bit' if equal else 'not bitwise equal'}; "
+          "launches " + " ".join(f"{k}={v}" for k, v in counts.items() if v)
+          + f"; step {step_ms:.1f} ms (host clock, one step)")
+    return counts
+
+
+def phase_eval(capture):
+    """Phase 17: `cli eval --device cuda` on phase 8's views and trained
+    PLY prints its JSON line with a finite PSNR."""
+    cams, images, ply = capture
+    proc, dt = run_cli(["eval", "--ply", ply, "--cameras", cams, "--images",
+                        images, "--width", str(W), "--height", str(H),
+                        "--device", "cuda"], "eval")
+    line = proc.stdout.strip().splitlines()[-1]
+    got = json.loads(line)
+    check(got["views"] == 4 and math.isfinite(got["psnr_mean"])
+          and math.isfinite(got["ssim_mean"]), f"cli eval printed {line}")
+    print(f"[17 eval] cli eval --device cuda on phase 8's 4 views and "
+          f"trained PLY: {line}; process {dt:.1f} s")
 
 
 def crowded_scenes(dev):
@@ -892,7 +1208,30 @@ def orbit_camera(i, n, w, h, radius=8.0):
                           center=(0, 0, 0))
 
 
-def phase_train(dev, cfg, iterations=30, label="8 train", kernels="AB"):
+def write_capture(views, folder):
+    """Views as INRIA writes a capture: PNGs and cameras.json → (cameras
+    path, images folder)."""
+    images = os.path.join(folder, "images")
+    os.makedirs(images, exist_ok=True)
+    entries = []
+    for i, v in enumerate(views):
+        write_png(v.image, os.path.join(images, f"{v.name}.png"))
+        c = v.camera
+        entries.append({
+            "id": i, "img_name": v.name, "width": W, "height": H,
+            "position": c.cam_pos.tolist(), "rotation": c.view[:3, :3].T.tolist(),
+            "fx": float(c.focal[0]), "fy": float(c.focal[1])})
+    cams = os.path.join(folder, "cameras.json")
+    with open(cams, "w") as f:
+        json.dump(entries, f)
+    return cams, images
+
+
+def phase_train(dev, cfg, iterations=30, label="8 train", kernels="AB",
+                capture_dir=None):
+    """`train()` on four 1080p views; with `capture_dir`, the views go
+    there as a capture and the trained scene as trained.ply → (launches,
+    (cameras path, images folder, PLY path) or None)."""
     with torch.no_grad():
         target = make_scene(N_SCENE, seed=1, device=dev)
         views = []
@@ -946,7 +1285,12 @@ def phase_train(dev, cfg, iterations=30, label="8 train", kernels="AB"):
           f"median {statistics.median(per_it):.2f}, mean "
           f"{statistics.mean(per_it):.2f}; wall {wall:.1f} s incl. set-up; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts
+    if capture_dir is None:
+        return counts, None
+    cams, images = write_capture(views, capture_dir)
+    ply = os.path.join(capture_dir, "trained.ply")
+    save_ply(compact(state.model, dstate), ply)
+    return counts, (cams, images, ply)
 
 
 def phase_cli_train(dev, cfg):
@@ -1005,6 +1349,7 @@ def main():
               f"{time.perf_counter() - t0:.1f} s")
         fwd, full = phase_kernel(dev, cloud, cfg)
         bwd = phase_backward(dev, cfg, full)
+        tiles = phase_tiles(dev, cfg, full)
         del full
         frame = phase_render(dev, cloud, cfg)
         afwd, afull = phase_anchor_kernel(dev, cloud, cfg_a)
@@ -1017,16 +1362,21 @@ def main():
         phase_serve(dev, cloud, cfg)
         phase_serve(dev, cloud, cfg_a, n_events=2, label="13 anchor",
                     kernel="C")
+    sharded = phase_sharded(dev, cloud, cfg, frame)
     del cloud
     phase_cli_render()
-    trained = phase_train(dev, cfg)
-    trained_a = phase_train(dev, cfg_a, iterations=10, label="14 anchor",
-                            kernels="CD")
-    phase_cli_train(dev, cfg)
+    with tempfile.TemporaryDirectory() as capture_dir:
+        trained, capture = phase_train(dev, cfg, capture_dir=capture_dir)
+        trained_a, _ = phase_train(dev, cfg_a, iterations=10,
+                                   label="14 anchor", kernels="CD")
+        phase_cli_train(dev, cfg)
+        phase_eval(capture)
     results = {"raster_fwd": fwd, "raster_bwd": bwd, "anchor_fwd": afwd,
-               "anchor_bwd": abwd}
+               "anchor_bwd": abwd, **tiles}
     launches = {"raster_fwd": trained["A"], "raster_bwd": trained["B"],
-                "anchor_fwd": trained_a["C"], "anchor_bwd": trained_a["D"]}
+                "anchor_fwd": trained_a["C"], "anchor_bwd": trained_a["D"],
+                "raster_fwd_tiles": sharded["E-A"],
+                "raster_bwd_tiles": sharded["E-B"]}
     print(f"[wall] {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,

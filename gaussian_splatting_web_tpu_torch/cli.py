@@ -1,10 +1,14 @@
 """Command-line interface of the port (the JAX package's `cli.py`; `bench`
-and `eval` are not ported yet, ROADMAP §1 items 7 and 9):
+is not ported yet, ROADMAP §1 item 7):
 
   python -m gaussian_splatting_web_tpu_torch.cli info   --ply scene.ply
   python -m gaussian_splatting_web_tpu_torch.cli render --ply scene.ply [--cameras cam.json] --out out/ [--device cuda]
   python -m gaussian_splatting_web_tpu_torch.cli serve  --ply scene.ply --port 8090 [--device cuda]
-  python -m gaussian_splatting_web_tpu_torch.cli train  --cameras cameras.json --images images/ [--ply init.ply] --out trained.ply [--device cuda]
+  python -m gaussian_splatting_web_tpu_torch.cli train  --cameras cameras.json --images images/ [--ply init.ply] --out trained.ply [--checkpoint dir] [--device cuda]
+  python -m gaussian_splatting_web_tpu_torch.cli eval   --ply trained.ply --cameras cameras.json --images images/ [--device cuda]
+
+`eval` prints PSNR and SSIM per view on stderr and one JSON line
+{"views", "psnr_mean", "ssim_mean"} on stdout.
 
 `--device` defaults to `cuda`; a CUDA device that is not there is an
 error, never a silent switch to the CPU.
@@ -134,7 +138,7 @@ def cmd_train(args):
 
     from .io.dataset import load_dataset
     from .models.gaussian_model import GaussianModel
-    from .train.checkpoint import has_checkpoint, save_ply
+    from .train.checkpoint import has_checkpoint, save_ply, save_train_state
     from .train.densify import compact
     from .train.train_loop import TrainLoopConfig, train
 
@@ -167,6 +171,36 @@ def cmd_train(args):
     save_ply(final, args.out)
     print(f"saved {final.num_gaussians} gaussians → {args.out}",
           file=sys.stderr)
+    if args.checkpoint:
+        save_train_state(state, args.checkpoint + "-final")
+
+
+def cmd_eval(args):
+    from .io.dataset import load_dataset
+    from .train.loss import full_f32, ssim
+
+    device = _device(args)
+    full_f32()
+    cloud = _load(args, device)
+    config = _config(args)
+    views = load_dataset(args.cameras, args.images, args.width, args.height,
+                         limit=args.limit or None)
+    psnrs, ssims = [], []
+    for v in views:
+        with torch.no_grad():
+            img, _ = render(cloud, v.camera, args.width, args.height, config)
+            img = torch.clamp(img, 0, 1)
+            ssims.append(float(ssim(img, torch.from_numpy(v.image).to(
+                img.device))))
+        mse = float(np.mean((img.cpu().numpy() - v.image) ** 2))
+        psnrs.append(10 * np.log10(1.0 / max(mse, 1e-10)))
+        print(f"{v.name}: PSNR {psnrs[-1]:.2f} dB  SSIM {ssims[-1]:.4f}",
+              file=sys.stderr)
+    print(json.dumps({
+        "views": len(views),
+        "psnr_mean": float(np.mean(psnrs)),
+        "ssim_mean": float(np.mean(ssims)),
+    }))
 
 
 def main(argv=None):
@@ -207,13 +241,15 @@ def main(argv=None):
     common(sp, ply_required=False)
     sp.add_argument("--cameras", required=True, help="INRIA cameras.json")
     sp.add_argument("--images", required=True,
-                    help="directory of PNG images at --width x --height")
+                    help="directory of the images (PNG or JPEG, resized to "
+                    "--width x --height)")
     sp.add_argument("--out", default="trained.ply")
     sp.add_argument("--iterations", type=int, default=7000)
     sp.add_argument("--limit", type=int, default=0, help="max training views")
     sp.add_argument("--checkpoint", help="directory of the loop state "
                     "(model, optimizer, iteration): saved every "
-                    "--checkpoint-every iterations, resumed from when present")
+                    "--checkpoint-every iterations, resumed from when "
+                    "present; the final TrainState goes to <dir>-final")
     sp.add_argument("--checkpoint-every", type=int, default=500,
                     dest="checkpoint_every",
                     help="save the loop state every N iterations")
@@ -221,6 +257,13 @@ def main(argv=None):
                     help="discard a loop state in --checkpoint and start "
                     "from scratch")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("eval", help="PSNR/SSIM against ground-truth images")
+    common(sp)
+    sp.add_argument("--cameras", required=True, help="INRIA cameras.json")
+    sp.add_argument("--images", required=True)
+    sp.add_argument("--limit", type=int, default=0)
+    sp.set_defaults(fn=cmd_eval)
 
     args = p.parse_args(argv)
     args.fn(args)

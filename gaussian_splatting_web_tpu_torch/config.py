@@ -8,9 +8,11 @@ binning: the port ships the exact mode (`depth_bits=0, tier_split=0,
 pack_fields=False, pack_mean16=False, pack_grads=False`), which is the mode
 the JAX package's own oracle tests pin.
 
-The TPU grid fields (`tile_chunk`, `r_tiles`, `r_tiles_bwd`, `early_exit`,
+The TPU grid fields (`r_tiles`, `r_tiles_bwd`, `early_exit`,
 `use_pallas`) are kept only for that one-to-one conversion; the port
-ignores them. Modes the port does not implement yet raise
+ignores them. `tile_chunk`, the TPU's lax.map chunk, is read only by the
+tile deal of `parallel/` (each shard's strip is a multiple of it), as in
+the JAX package. Modes the port does not implement yet raise
 `NotImplementedError` naming the ROADMAP item that will port them.
 """
 
@@ -29,7 +31,7 @@ class RenderConfig:
     tile_size: int = 16          # pixels per tile side; the CUDA compositor
                                  # is built for 16 (one thread per pixel)
     max_dup: int = 16            # max tiles a single gaussian is binned into
-    tile_chunk: int = 32         # TPU lax.map chunk (ignored by the port)
+    tile_chunk: int = 32         # tile-shard strip alignment (parallel/)
     max_per_tile: int = 1024     # per-tile pair cap of the compositor
     depth_bits: int = 0          # 0 = exact (tile, f32 depth) sort
     tier_split: int = 0          # 0 = single-tier duplication

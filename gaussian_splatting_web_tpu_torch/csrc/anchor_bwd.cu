@@ -78,8 +78,9 @@ anchor_bwd_kernel(const float* __restrict__ fields,
         return dpairs + (static_cast<size_t>(__ldg(groups + k)) * num_entries
                          + __ldg(list + k)) * kGrad;
       },
-      k_used[tile], tile % gx, tile / gx, width, height, final_log_t,
-      last_idx, d_rgb, d_alpha, log_cut, alpha_max, stage);
+      k_used[tile], tile % gx, tile / gx, width, height,
+      FrameIn{d_rgb, d_alpha, final_log_t, last_idx, width}, log_cut,
+      alpha_max, stage);
 }
 
 }  // namespace

@@ -239,8 +239,8 @@ anchor_fwd_kernel(const float* __restrict__ fields,
         const int ul = s_ord[k];
         return __ldg(sorted_gidx + (ul >= half ? base_b : base_a) + ul);
       },
-      count, tx, ty, width, height, log_cut, alpha_max, log_eps, stage, rgb,
-      alpha, final_log_t, last_idx);
+      count, tx, ty, width, height, log_cut, alpha_max, log_eps, stage,
+      FrameOut{rgb, alpha, final_log_t, last_idx, width});
 }
 
 }  // namespace

@@ -89,7 +89,40 @@ raster_bwd_kernel(const float* __restrict__ fields,
       fields, [=](int k) { return __ldg(sorted_gidx + start + k); },
       [=](int k) { return dpairs + static_cast<size_t>(start + k) * kGrad; },
       min(tile_count[tile], k_cap), tile % gx, tile / gx, width, height,
-      final_log_t, last_idx, d_rgb, d_alpha, log_cut, alpha_max, stage);
+      FrameIn{d_rgb, d_alpha, final_log_t, last_idx, width}, log_cut,
+      alpha_max, stage);
+}
+
+// The tile-list entry (replaces backward_pair_grads(..., tile_ids=)):
+// block b walks the tile at list position order[b], reading the cotangent
+// and the residual from that position's slot of tile-major arrays, and
+// stores the rows of that tile's pairs; rows of unlisted tiles keep their
+// zeros. The empty sentinel id num_tiles has no pairs and does nothing.
+__global__ void __launch_bounds__(kPix, kBwdBlocksPerSM)
+raster_bwd_tiles_kernel(const float* __restrict__ fields,
+                        const int* __restrict__ sorted_gidx,
+                        const int* __restrict__ tile_start,
+                        const int* __restrict__ tile_count,
+                        const int* __restrict__ tile_ids,
+                        const int* __restrict__ list_order,
+                        const float* __restrict__ final_log_t,
+                        const int* __restrict__ last_idx,
+                        const float* __restrict__ d_rgba, int num_tiles,
+                        int width, int height, int gx, int k_cap,
+                        float log_cut, float alpha_max,
+                        float* __restrict__ dpairs) {
+  __shared__ BwdStage stage;
+  const int pos = list_order[blockIdx.x];
+  const int tile = tile_ids[pos];
+  const bool real = tile < num_tiles;
+  const int start = real ? tile_start[tile] : 0;
+  const size_t slot = static_cast<size_t>(pos) * kPix;
+  backward_tile(
+      fields, [=](int k) { return __ldg(sorted_gidx + start + k); },
+      [=](int k) { return dpairs + static_cast<size_t>(start + k) * kGrad; },
+      real ? min(tile_count[tile], k_cap) : 0, tile % gx, tile / gx, width,
+      height, SlotIn{d_rgba + 4 * slot, final_log_t + slot, last_idx + slot},
+      log_cut, alpha_max, stage);
 }
 
 }  // namespace
@@ -121,6 +154,40 @@ int raster_bwd(const float* fields, const int* sorted_gidx,
         fields, sorted_gidx, tile_start, tile_count, tile_order, final_log_t,
         last_idx, d_rgb, d_alpha, width, height, gx, k_cap, log_cut,
         alpha_max, dpairs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches kernel B's tile-list entry on `stream` of `device` over the
+// `num_ids` entries of `tile_ids` (ids in [0, gx * gy], gx * gy the empty
+// sentinel, no real id twice, or two blocks would store the same rows):
+// first the heavy-first schedule of the list positions into `list_order`
+// (num_ids ints of scratch), then the backward, reading position i's
+// cotangent from slot i of d_rgba [num_ids, 256, 4] and its residual from
+// final_log_t and last_idx [num_ids, 256]. Returns cudaGetLastError() (0 on
+// success). Pointers are device pointers; `fields` must be 16-byte aligned;
+// `dpairs` [M, 9] must be zeroed (rows of unlisted tiles, of pairs past
+// every pixel's walk and past k_cap are not written).
+int raster_bwd_tiles(const float* fields, const int* sorted_gidx,
+                     const int* tile_start, const int* tile_count,
+                     const int* tile_ids, int* list_order,
+                     const float* final_log_t, const int* last_idx,
+                     const float* d_rgba, int num_ids, int width, int height,
+                     int gx, int gy, int k_cap, float log_cut,
+                     float alpha_max, float* dpairs, int device,
+                     void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int num_tiles = gx * gy;
+  if (num_ids > 0) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    heavy_first_order<<<1, kOrderThreads, 0, st>>>(
+        ListCount{tile_count, tile_ids, num_tiles}, num_ids, k_cap,
+        list_order);
+    raster_bwd_tiles_kernel<<<num_ids, kPix, 0, st>>>(
+        fields, sorted_gidx, tile_start, tile_count, tile_ids, list_order,
+        final_log_t, last_idx, d_rgba, num_tiles, width, height, gx, k_cap,
+        log_cut, alpha_max, dpairs);
   }
   return static_cast<int>(cudaGetLastError());
 }

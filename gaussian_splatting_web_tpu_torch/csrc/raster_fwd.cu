@@ -82,7 +82,38 @@ raster_fwd_kernel(const float* __restrict__ fields,
   composite_tile(
       fields, [=](int k) { return __ldg(sorted_gidx + start + k); },
       min(tile_count[tile], k_cap), tile % gx, tile / gx, width, height,
-      log_cut, alpha_max, log_eps, stage, rgb, alpha, final_log_t, last_idx);
+      log_cut, alpha_max, log_eps, stage,
+      FrameOut{rgb, alpha, final_log_t, last_idx, width});
+}
+
+// The tile-list entry (replaces composite_tiles_pallas(..., tile_ids=)):
+// block b composites the tile at list position order[b] into that
+// position's slot of the tile-major outputs. The empty sentinel id
+// num_tiles composites nothing and lies below the frame, so its slot gets
+// zeros (rgba, log-T) and -1 (last index).
+__global__ void __launch_bounds__(kPix)
+raster_fwd_tiles_kernel(const float* __restrict__ fields,
+                        const int* __restrict__ sorted_gidx,
+                        const int* __restrict__ tile_start,
+                        const int* __restrict__ tile_count,
+                        const int* __restrict__ tile_ids,
+                        const int* __restrict__ list_order, int num_tiles,
+                        int width, int height, int gx, int k_cap,
+                        float log_cut, float alpha_max, float log_eps,
+                        float4* __restrict__ rgba,
+                        float* __restrict__ final_log_t,
+                        int* __restrict__ last_idx) {
+  __shared__ PairStage<kFwdBatch> stage;
+  const int pos = list_order[blockIdx.x];
+  const int tile = tile_ids[pos];
+  const bool real = tile < num_tiles;
+  const int start = real ? tile_start[tile] : 0;
+  const size_t slot = static_cast<size_t>(pos) * kPix;
+  composite_tile(
+      fields, [=](int k) { return __ldg(sorted_gidx + start + k); },
+      real ? min(tile_count[tile], k_cap) : 0, tile % gx, tile / gx, width,
+      height, log_cut, alpha_max, log_eps, stage,
+      SlotOut{rgba + slot, final_log_t + slot, last_idx + slot});
 }
 
 }  // namespace
@@ -111,6 +142,37 @@ int raster_fwd(const float* fields, const int* sorted_gidx,
         fields, sorted_gidx, tile_start, tile_count, tile_order, width,
         height, gx, k_cap, log_cut, alpha_max, log_eps, rgb, alpha,
         final_log_t, last_idx);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches kernel A's tile-list entry on `stream` of `device` over the
+// `num_ids` entries of `tile_ids` (ids in [0, gx * gy], gx * gy the empty
+// sentinel, no real id twice): first the heavy-first schedule of the list
+// positions into `list_order` (num_ids ints of scratch), then the
+// compositor, writing position i's tile into slot i of rgba [num_ids, 256,
+// 4], final_log_t and last_idx [num_ids, 256] (pixels row-major in the
+// tile). Returns cudaGetLastError() (0 on success). Pointers are device
+// pointers; `fields` and `rgba` must be 16-byte aligned.
+int raster_fwd_tiles(const float* fields, const int* sorted_gidx,
+                     const int* tile_start, const int* tile_count,
+                     const int* tile_ids, int* list_order, int num_ids,
+                     int width, int height, int gx, int gy, int k_cap,
+                     float log_cut, float alpha_max, float log_eps,
+                     float* rgba, float* final_log_t, int* last_idx,
+                     int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int num_tiles = gx * gy;
+  if (num_ids > 0) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    heavy_first_order<<<1, kOrderThreads, 0, st>>>(
+        ListCount{tile_count, tile_ids, num_tiles}, num_ids, k_cap,
+        list_order);
+    raster_fwd_tiles_kernel<<<num_ids, kPix, 0, st>>>(
+        fields, sorted_gidx, tile_start, tile_count, tile_ids, list_order,
+        num_tiles, width, height, gx, k_cap, log_cut, alpha_max, log_eps,
+        reinterpret_cast<float4*>(rgba), final_log_t, last_idx);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,9 @@
 // per-tile weight capped at `cap`, by a counting sort in shared memory (a
 // histogram, a scan from the heaviest class down, a scatter). The weight is
 // a functor of the tile: A and B take the pair count (TileCount over
-// tile_count, cap k_cap), D the ordered list's length (TileCount over
-// k_used), C the union positions its merge reads (anchor_fwd.cu). The class
+// tile_count, cap k_cap; ListCount over a tile list's positions), D the
+// ordered list's length (TileCount over k_used), C the union positions its
+// merge reads (anchor_fwd.cu). The class
 // is the capped weight itself while cap < kOrderClasses, else the capped
 // weight in kOrderClasses equal bins. Within a class the order is that of
 // the shared-memory cursors: the kernels' outputs do not depend on the
@@ -34,6 +35,18 @@ __device__ __forceinline__ int order_class(int weight, int cap) {
 struct TileCount {
   const int* count;
   __device__ __forceinline__ int operator()(int t) const { return count[t]; }
+};
+
+// the weight of list position i is count[tile_ids[i]], 0 for the empty
+// sentinel id num_tiles (A's and B's tile-list entries order positions)
+struct ListCount {
+  const int* count;
+  const int* tile_ids;
+  int num_tiles;
+  __device__ __forceinline__ int operator()(int i) const {
+    const int t = tile_ids[i];
+    return t < num_tiles ? count[t] : 0;
+  }
 };
 
 namespace {

@@ -8,6 +8,10 @@
 //               tile's ordered list;
 //   row_of(k)   (backward only) the 9-float row the k-th pair's gradient is
 //               stored to: B's row start + k, D's row (group, position).
+// and a pixel functor that says where the tile's pixels keep their values:
+// FrameOut / FrameIn, the frame's row-major images (A-D over the whole
+// frame), or SlotOut / SlotIn, one slot of tile-major arrays (A's and B's
+// tile-list entries, the slot of the tile's list position).
 // The design of the walks (8x4 warp blocks, the footprint mask at staging,
 // the ballot walk, the butterfly reduction) is described in raster_fwd.cu
 // and raster_bwd.cu.
@@ -63,6 +67,92 @@ struct PairForm {
   unsigned mask;
 };
 
+// Forward outputs in the frame's row-major images, pixel (x, y) at
+// y * width + x: rgb [H, W, 3], alpha, final_log_t [H, W], last_idx [H, W];
+// pixels past W or H are not written.
+struct FrameOut {
+  float* rgb;
+  float* alpha;
+  float* final_log_t;
+  int* last_idx;
+  int width;
+  __device__ __forceinline__ void operator()(bool inside, int x, int y, int,
+                                             int, float r, float g, float b,
+                                             float a, float log_t,
+                                             int last) const {
+    if (!inside) return;
+    const int pix = y * width + x;
+    rgb[3 * pix + 0] = r;
+    rgb[3 * pix + 1] = g;
+    rgb[3 * pix + 2] = b;
+    alpha[pix] = a;
+    final_log_t[pix] = log_t;
+    last_idx[pix] = last;
+  }
+};
+
+// Forward outputs in one tile's slot of tile-major arrays, pixel (lx, ly) at
+// ly * kTile + lx: rgba [kPix] (float4), final_log_t, last_idx [kPix]. Every
+// pixel is written; one past W or H takes no part and gets rgba 0, log-T 0
+// and last index -1.
+struct SlotOut {
+  float4* rgba;
+  float* final_log_t;
+  int* last_idx;
+  __device__ __forceinline__ void operator()(bool, int, int, int lx, int ly,
+                                             float r, float g, float b,
+                                             float a, float log_t,
+                                             int last) const {
+    const int p = ly * kTile + lx;
+    rgba[p] = make_float4(r, g, b, a);
+    final_log_t[p] = log_t;
+    last_idx[p] = last;
+  }
+};
+
+// Backward inputs (image cotangents and the forward's residual) in the
+// frame's row-major images; read only for pixels inside the frame.
+struct FrameIn {
+  const float* d_rgb;
+  const float* d_alpha;
+  const float* final_log_t;
+  const int* last_idx;
+  int width;
+  __device__ __forceinline__ void operator()(int x, int y, int, int,
+                                             float& g_r, float& g_g,
+                                             float& g_b, float& g_a,
+                                             float& log_t, int& last) const {
+    const int pix = y * width + x;
+    g_r = d_rgb[3 * pix + 0];
+    g_g = d_rgb[3 * pix + 1];
+    g_b = d_rgb[3 * pix + 2];
+    g_a = d_alpha[pix];
+    log_t = final_log_t[pix];
+    last = last_idx[pix];
+  }
+};
+
+// Backward inputs in one tile's slot of tile-major arrays: the cotangent of
+// rgba [kPix, 4] and the residual [kPix]; read only for pixels inside the
+// frame.
+struct SlotIn {
+  const float* d_rgba;
+  const float* final_log_t;
+  const int* last_idx;
+  __device__ __forceinline__ void operator()(int, int, int lx, int ly,
+                                             float& g_r, float& g_g,
+                                             float& g_b, float& g_a,
+                                             float& log_t, int& last) const {
+    const int p = ly * kTile + lx;
+    g_r = d_rgba[4 * p + 0];
+    g_g = d_rgba[4 * p + 1];
+    g_b = d_rgba[4 * p + 2];
+    g_a = d_rgba[4 * p + 3];
+    log_t = final_log_t[p];
+    last = last_idx[p];
+  }
+};
+
 // Gathers splat g's field row (three 16-byte loads), forms the six rows
 // exactly as the twin does and the footprint mask, and stores them in slot
 // i of `s`.
@@ -112,15 +202,13 @@ __device__ __forceinline__ float pair_power(float4 va, float4 vb, float px,
 }
 
 // Kernel A's composite of tile (tx, ty) over its `count` pairs, front to
-// back, by the whole CTA; writes the pixel outputs (rgb premultiplied,
-// alpha, final log-T, last contributing index, -1 if none).
-template <class GidxOf>
+// back, by the whole CTA; hands each pixel's outputs (rgb premultiplied,
+// alpha, final log-T, last contributing index, -1 if none) to `out`.
+template <class GidxOf, class Out>
 __device__ __forceinline__ void composite_tile(
     const float* __restrict__ fields, GidxOf gidx_of, int count, int tx,
     int ty, int width, int height, float log_cut, float alpha_max,
-    float log_eps, PairStage<kFwdBatch>& s, float* __restrict__ rgb,
-    float* __restrict__ alpha, float* __restrict__ final_log_t,
-    int* __restrict__ last_idx) {
+    float log_eps, PairStage<kFwdBatch>& s, Out out) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int lx = block_x0(warp) + lane % kBlockW;
@@ -181,15 +269,7 @@ __device__ __forceinline__ void composite_tile(
     }
   }
 
-  if (inside) {
-    const int pix = y * width + x;
-    rgb[3 * pix + 0] = acc_r;
-    rgb[3 * pix + 1] = acc_g;
-    rgb[3 * pix + 2] = acc_b;
-    alpha[pix] = acc_a;
-    final_log_t[pix] = log_t;
-    last_idx[pix] = last;
-  }
+  out(inside, x, y, lx, ly, acc_r, acc_g, acc_b, acc_a, log_t, last);
 }
 
 // Sums p[0..8] over the warp in a fixed order: afterwards lanes 4j..4j+3
@@ -223,16 +303,14 @@ __device__ __forceinline__ void warp_sum9(const float (&p)[kGrad], int lane,
 
 // Kernel B's backward of tile (tx, ty) over its `count` pairs, back to
 // front, by the whole CTA, from the forward's residual (final log-T, last
-// contributing index) and the image cotangents; stores each pair's row at
-// row_of(k) with plain stores (rows of pairs past every pixel's walk are
-// not written).
-template <class GidxOf, class RowOf>
+// contributing index) and the image cotangents, which `in` reads for each
+// pixel inside the frame; stores each pair's row at row_of(k) with plain
+// stores (rows of pairs past every pixel's walk are not written).
+template <class GidxOf, class RowOf, class In>
 __device__ __forceinline__ void backward_tile(
     const float* __restrict__ fields, GidxOf gidx_of, RowOf row_of, int count,
-    int tx, int ty, int width, int height,
-    const float* __restrict__ final_log_t, const int* __restrict__ last_idx,
-    const float* __restrict__ d_rgb, const float* __restrict__ d_alpha,
-    float log_cut, float alpha_max, BwdStage& s) {
+    int tx, int ty, int width, int height, In in, float log_cut,
+    float alpha_max, BwdStage& s) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int lx = block_x0(warp) + lane % kBlockW;
@@ -251,13 +329,8 @@ __device__ __forceinline__ void backward_tile(
   float log_t = 0.f;  // log-T after the pair being walked
   int last = -1;
   if (inside) {
-    const int pix = y * width + x;
-    g_r = d_rgb[3 * pix + 0];
-    g_g = d_rgb[3 * pix + 1];
-    g_b = d_rgb[3 * pix + 2];
-    g_a = d_alpha[pix];
-    log_t = final_log_t[pix];
-    last = min(last_idx[pix], count - 1);
+    in(x, y, lx, ly, g_r, g_g, g_b, g_a, log_t, last);
+    last = min(last, count - 1);
   }
   const int warp_last = __reduce_max_sync(kFull, last);
   if (lane == 0) s.wlast[warp] = warp_last;

@@ -3,10 +3,12 @@
 next to an images directory whose file names match the `img_name` entries,
 served as [H, W, 3] float32 targets in [0, 1].
 
-The port has no imaging package: images are PNGs decoded with the
-standard library (utils.image.read_png), already at the training
-resolution. JPEG files and resizing raise NotImplementedError (ROADMAP §1
-item 9 ports them).
+A PNG at the training resolution is decoded with the standard library
+(utils.image.read_png). Any other file (JPEG, as INRIA captures are) or
+size goes through pillow, imported only then, exactly as the JAX package
+loads every image: `Image.open(p).convert("RGB")`, a LANCZOS resize to the
+training size when the size differs, / 255 in float32, so both packages
+give the same bits.
 """
 
 from __future__ import annotations
@@ -29,16 +31,25 @@ class View:
     name: str
 
 
+def _load_with_pillow(path: str, width: int, height: int) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: JPEG input and resizing need pillow (pip install "
+            "pillow); a PNG at the training size needs nothing") from e
+    img = Image.open(path).convert("RGB")
+    if img.size != (width, height):
+        img = img.resize((width, height), Image.LANCZOS)
+    return np.asarray(img, dtype=np.float32) / 255.0
+
+
 def _load_image(path: str, width: int, height: int) -> np.ndarray:
     if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port decodes PNG only; JPEG input is ROADMAP §1 "
-            "item 9")
+        return _load_with_pillow(path, width, height)
     img = read_png(path)
     if img.shape[:2] != (height, width):
-        raise NotImplementedError(
-            f"{path} is {img.shape[1]}x{img.shape[0]}, training runs at "
-            f"{width}x{height}: resizing is ROADMAP §1 item 9")
+        return _load_with_pillow(path, width, height)
     if img.shape[2] < 3:           # grey (+ alpha) → RGB
         img = np.repeat(img[..., :1], 3, axis=2)
     return img[..., :3].astype(np.float32) / 255.0

@@ -11,23 +11,32 @@ residual. A CUDA tensor runs A forward and B backward; a CPU tensor runs
 the plain PyTorch twins (`ops/rasterize.py::composite_image_plain`,
 `composite_backward_plain`) through the same Function; any other device
 raises. Either way the backward folds B's pair rows onto the splats with
-`fold_pair_grads`. `launches` and `launches_bwd` count kernel launches and
-are changed nowhere else.
+`fold_pair_grads`. `composite_tiles_subset` (`CompositeTilesFn`) does the
+same over a list of tile ids with A's and B's tile-list entries (E, which
+replace `composite_tiles_pallas(tile_ids=)` and
+`backward_pair_grads(tile_ids=)`), writing tiles in list order, and their
+twins `ops/rasterize.py::composite_tiles` and
+`composite_tiles_backward_plain`. `launches`, `launches_bwd`,
+`launches_tiles` and `launches_tiles_bwd` count kernel launches and are
+changed nowhere else.
 
 Both kernels run the tiles heavy first (each launch first writes the
 schedule, `csrc/tile_order.cuh`) and skip the 8x4 pixel blocks a pair
-cannot reach (`csrc/footprint.cuh`). `prepare_fwd` and `prepare_bwd` do a
-launch's checks and allocations and return a callable that only launches,
-so a kernel can be timed alone. `heavy_first_order` (with `tile_order` for
-A and B) and `footprint_blocks` are the plain twins of the schedule and of
-the cull, and `cull_stats` holds the cull against the twin's power; nothing
-on the render or training path calls them.
+cannot reach (`csrc/footprint.cuh`). `prepare_fwd` and `prepare_bwd` (and
+`prepare_fwd_tiles`, `prepare_bwd_tiles`) do a launch's checks and
+allocations and return a callable that only launches, so a kernel can be
+timed alone. `heavy_first_order` (with `tile_order` for A and B,
+`tile_list_order` for their list entries) and `footprint_blocks` are the
+plain twins of the schedule and of the cull, and `cull_stats` holds the
+cull against the twin's power; nothing on the render or training path
+calls them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,19 +49,35 @@ from ..rasterize import (
     Composite,
     composite_backward_plain,
     composite_image_plain,
+    composite_tiles,
+    composite_tiles_backward_plain,
     fold_pair_grads,
 )
 from ..sort import TileBins
 from . import build
 
-launches = 0       # kernel A
-launches_bwd = 0   # kernel B
+launches = 0             # kernel A
+launches_bwd = 0         # kernel B
+launches_tiles = 0       # kernel A's tile-list entry
+launches_tiles_bwd = 0   # kernel B's tile-list entry
+
+
+class TileOutputs(NamedTuple):
+    """The tile-list entries' outputs in list-position layout: rgba
+    [L, 256, 4] premultiplied, final_log_t [L, 256], last_idx [L, 256]
+    int32 (pixels row-major in the tile)."""
+
+    rgba: torch.Tensor
+    final_log_t: torch.Tensor
+    last_idx: torch.Tensor
 
 
 def _kernel_fn(name: str, n_ptr_in: int, n_int: int, n_float: int,
-               n_ptr_out: int):
+               n_ptr_out: int, entry: str | None = None):
+    """The extern "C" launcher `entry` (default `name`) of csrc/<name>.cu,
+    its argument types set, and the source's error-string function."""
     lib = build.load(name)
-    fn = getattr(lib, name)
+    fn = getattr(lib, entry or name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptr_in + [ctypes.c_int] * n_int
                    + [ctypes.c_float] * n_float + [ctypes.c_void_p] * n_ptr_out
                    + [ctypes.c_int, ctypes.c_void_p])
@@ -75,8 +100,10 @@ def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(fields, bins, width, height, config):
-    """Checks shared by both kernels: tile size, field layout, bins."""
+def _check_inputs(fields, bins, width, height, config, tile_ids=None):
+    """Checks shared by both kernels: tile size, field layout, bins and,
+    for the tile-list entries, `tile_ids` (ids in [0, gx·gy], gx·gy the
+    empty sentinel, no real id twice), in one host sync."""
     if config.tile_size != 16:
         raise ValueError("the CUDA compositor is built for tile_size=16, "
                          f"got {config.tile_size}")
@@ -94,14 +121,33 @@ def _check_inputs(fields, bins, width, height, config):
         raise ValueError(f"bins hold {bins.tile_start.shape[0]} tiles, "
                          f"the frame has {gx * gy}")
     m = bins.sorted_gidx.shape[0]
+    if tile_ids is not None:
+        _check(tile_ids, "tile_ids", torch.int32, dev, 1)
+    checks = {}
     if m:
-        seg_end = (bins.tile_start.to(torch.int64)
-                   + torch.clamp(bins.tile_count, max=config.max_per_tile))
-        end, gmin, gmax = torch.stack(
-            [seg_end.max(), bins.sorted_gidx.min().to(torch.int64),
-             bins.sorted_gidx.max().to(torch.int64)]).tolist()
-        if end > m or gmin < 0 or gmax >= fields.shape[0]:
+        checks["end"] = (bins.tile_start.to(torch.int64) + torch.clamp(
+            bins.tile_count, max=config.max_per_tile)).max()
+        checks["gmin"] = bins.sorted_gidx.min().to(torch.int64)
+        checks["gmax"] = bins.sorted_gidx.max().to(torch.int64)
+    t = gx * gy
+    if tile_ids is not None and tile_ids.numel():
+        ids = tile_ids.to(torch.int64)
+        hits = torch.zeros(t + 1, dtype=torch.int64, device=dev).index_add_(
+            0, ids.clamp(0, t), torch.ones_like(ids))
+        checks["lo"], checks["hi"] = ids.min(), ids.max()
+        checks["most"] = hits[:t].max()
+    if checks:
+        got = dict(zip(checks, torch.stack(list(checks.values())).tolist()))
+        if m and (got["end"] > m or got["gmin"] < 0
+                  or got["gmax"] >= fields.shape[0]):
             raise ValueError("bins index outside the pair or splat arrays")
+        if "lo" in got and (got["lo"] < 0 or got["hi"] > t):
+            raise ValueError(f"tile_ids hold ids in {got['lo']}..{got['hi']}"
+                             f", outside [0, {t}] ({t} is the empty "
+                             "sentinel)")
+        if "most" in got and got["most"] > 1:
+            raise ValueError("tile_ids list a tile more than once; pad with "
+                             f"the empty sentinel {t}")
     return gx, gy
 
 
@@ -128,6 +174,14 @@ def heavy_first_order(weight: torch.Tensor, cap: int) -> torch.Tensor:
 def tile_order(bins: TileBins, config: RenderConfig) -> torch.Tensor:
     """Kernels A's and B's schedule: the capped pair count."""
     return heavy_first_order(bins.tile_count, config.max_per_tile)
+
+
+def tile_list_order(bins: TileBins, tile_ids: torch.Tensor,
+                    config: RenderConfig) -> torch.Tensor:
+    """The tile-list entries' schedule: list positions by the capped pair
+    count of their tile, 0 for the empty sentinel."""
+    counts = F.pad(bins.tile_count, (0, 1))[tile_ids.long()]
+    return heavy_first_order(counts, config.max_per_tile)
 
 
 def _device_of(fields: torch.Tensor) -> str:
@@ -281,6 +335,164 @@ def composite_image(fields: torch.Tensor, bins: TileBins, width: int,
     last_idx), differentiable in `fields`."""
     _device_of(fields)
     return Composite(*CompositeFn.apply(fields, bins, width, height, config))
+
+
+# --- the tile-list entries (composite_tiles_subset_pallas) -----------------
+
+
+def prepare_fwd_tiles(fields, bins, tile_ids, width, height, config):
+    """Kernel A's tile-list entry: checks and outputs → (run, (TileOutputs,
+    order)): each run() launches A once over the L entries of `tile_ids`
+    into the tile-major outputs, writing its schedule of list positions into
+    `order` first."""
+    gx, gy = _check_inputs(fields, bins, width, height, config, tile_ids)
+    dev = fields.device
+    n_ids = tile_ids.shape[0]
+    p = config.tile_size ** 2
+    out = TileOutputs(
+        rgba=torch.empty((n_ids, p, 4), dtype=torch.float32, device=dev),
+        final_log_t=torch.empty((n_ids, p), dtype=torch.float32, device=dev),
+        last_idx=torch.empty((n_ids, p), dtype=torch.int32, device=dev))
+    order = torch.empty((n_ids,), dtype=torch.int32, device=dev)
+    ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count,
+           tile_ids, order)
+    fn, err_str = _kernel_fn("raster_fwd", 6, 6, 3, 3,
+                              entry="raster_fwd_tiles")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        global launches_tiles
+        err = fn(*(t.data_ptr() for t in ins),
+                 n_ids, width, height, gx, gy, config.max_per_tile,
+                 math.log(config.alpha_cutoff), config.alpha_max,
+                 math.log(config.transmittance_eps),
+                 *(t.data_ptr() for t in out), dev.index, stream)
+        if err != 0:
+            raise RuntimeError(f"raster_fwd_tiles launch failed: cuda error "
+                               f"{err} ({err_str(err).decode()})")
+        launches_tiles += 1
+
+    return run, (out, order)
+
+
+def prepare_bwd_tiles(fields, bins, tile_ids, width, height, config,
+                      final_log_t, last_idx, d_rgba):
+    """Kernel B's tile-list entry: checks and zeroed output → (run, (dpairs,
+    order)): each run() launches B once over the L entries of `tile_ids`,
+    reading the residual final_log_t, last_idx [L, 256] and the cotangent
+    d_rgba [L, 256, 4] in list-position layout, into dpairs [M, 9]."""
+    gx, gy = _check_inputs(fields, bins, width, height, config, tile_ids)
+    dev = fields.device
+    n_ids = tile_ids.shape[0]
+    p = config.tile_size ** 2
+    _check(final_log_t, "final_log_t", torch.float32, dev, 2)
+    _check(last_idx, "last_idx", torch.int32, dev, 2)
+    _check(d_rgba, "d_rgba", torch.float32, dev, 3)
+    for t, name, shape in ((final_log_t, "final_log_t", (n_ids, p)),
+                           (last_idx, "last_idx", (n_ids, p)),
+                           (d_rgba, "d_rgba", (n_ids, p, 4))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    dpairs = torch.zeros((bins.sorted_gidx.shape[0], GRAD_ROW),
+                         dtype=torch.float32, device=dev)
+    order = torch.empty((n_ids,), dtype=torch.int32, device=dev)
+    ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count,
+           tile_ids, order, final_log_t, last_idx, d_rgba)
+    fn, err_str = _kernel_fn("raster_bwd", 9, 6, 2, 1,
+                              entry="raster_bwd_tiles")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        global launches_tiles_bwd
+        err = fn(*(t.data_ptr() for t in ins),
+                 n_ids, width, height, gx, gy, config.max_per_tile,
+                 math.log(config.alpha_cutoff), config.alpha_max,
+                 dpairs.data_ptr(), dev.index, stream)
+        if err != 0:
+            raise RuntimeError(f"raster_bwd_tiles launch failed: cuda error "
+                               f"{err} ({err_str(err).decode()})")
+        launches_tiles_bwd += 1
+
+    return run, (dpairs, order)
+
+
+def composite_tiles_list(fields, bins, tile_ids, width, height,
+                         config) -> TileOutputs:
+    """The tiles at the L entries of `tile_ids` → TileOutputs (rgba [L,
+    256, 4], final_log_t, last_idx [L, 256]), not differentiable: kernel
+    A's tile-list entry for CUDA tensors, the plain twin
+    (`ops/rasterize.py::composite_tiles`) for CPU tensors. The kernel
+    writes pixels outside the frame as taking no part (rgba 0, log-T 0,
+    last index -1); the twin composites them as if the frame went on. Both
+    give the empty sentinel id gx·gy a slot of rgba 0, log-T 0 and -1."""
+    if _device_of(fields) == "cpu":
+        gx, _ = config.grid_size(width, height)
+        return TileOutputs(*composite_tiles(fields, bins, tile_ids, gx,
+                                            config))
+    run, (out, _) = prepare_fwd_tiles(fields, bins, tile_ids, width, height,
+                                      config)
+    run()
+    return out
+
+
+def composite_tiles_backward(fields, bins, tile_ids, width, height, config,
+                             final_log_t, last_idx,
+                             d_rgba) -> torch.Tensor:
+    """Per-pair gradient rows [M, 9] of the listed tiles' pairs (rows of
+    unlisted tiles' pairs are 0) from the residual and the cotangent d_rgba
+    [L, 256, 4] in list-position layout: kernel B's tile-list entry for
+    CUDA tensors, the plain twin for CPU tensors. Pixels outside the frame
+    take no part."""
+    if _device_of(fields) == "cpu":
+        return composite_tiles_backward_plain(fields, bins, tile_ids, width,
+                                              height, config, last_idx,
+                                              d_rgba)
+    run, (dpairs, _) = prepare_bwd_tiles(fields, bins, tile_ids, width,
+                                         height, config, final_log_t,
+                                         last_idx, d_rgba)
+    run()
+    return dpairs
+
+
+class CompositeTilesFn(torch.autograd.Function):
+    """fields [N, 12] → (rgba [L, 256, 4], final_log_t, last_idx [L, 256])
+    over the L entries of `tile_ids`; the residual outputs and `tile_ids`
+    carry no gradient. The backward returns the folded pair gradients
+    widened to [N, 12] with zero pads."""
+
+    @staticmethod
+    def forward(ctx, fields, bins, tile_ids, width, height, config):
+        out = composite_tiles_list(fields, bins, tile_ids, width, height,
+                                   config)
+        ctx.mark_non_differentiable(out.final_log_t, out.last_idx)
+        ctx.save_for_backward(fields, tile_ids, out.final_log_t,
+                              out.last_idx)
+        ctx.frame = (bins, width, height, config)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, d_rgba, _d_log_t, _d_last):
+        fields, tile_ids, final_log_t, last_idx = ctx.saved_tensors
+        bins, width, height, config = ctx.frame
+        dpairs = composite_tiles_backward(
+            fields, bins, tile_ids, width, height, config, final_log_t,
+            last_idx, d_rgba.contiguous())
+        seg = fold_pair_grads(dpairs, bins, fields.shape[0])
+        return (F.pad(seg, (0, FIELD_ROW - GRAD_ROW)), None, None, None,
+                None, None)
+
+
+def composite_tiles_subset(fields: torch.Tensor, bins: TileBins,
+                           tile_ids: torch.Tensor, width: int, height: int,
+                           config: RenderConfig) -> torch.Tensor:
+    """Composite the tiles at the entries of `tile_ids` (int32 [L], ids in
+    [0, gx·gy], gx·gy the empty sentinel, no real id twice) → rgba
+    [L, 256, 4] premultiplied, differentiable in `fields`: the port of the
+    JAX package's `composite_tiles_subset_pallas`."""
+    _device_of(fields)
+    return CompositeTilesFn.apply(fields, bins, tile_ids, width, height,
+                                  config)[0]
 
 
 # --- the footprint cull's plain mirror (tests and chip_smoke only) --------

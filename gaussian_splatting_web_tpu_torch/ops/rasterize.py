@@ -26,7 +26,9 @@ none). These replace the TPU kernel's `fin` (final carry + chunk count).
 gradient rows in sorted pair order, and `fold_pair_grads` sums them back
 onto the splats (`ops/pallas/raster.py::_fold_pair_grads`).
 
-`rasterize_tiles` goes through the differentiable compositor
+`composite_tiles_auto` composites a list of tiles, differentiably (the
+tile-sharded paths, `parallel/`). `rasterize_tiles` goes through the
+differentiable compositor
 (`ops/cuda/raster.py::composite_image`): a CUDA tensor launches kernels A
 and B, a CPU tensor takes the plain twins. `bin_and_composite`, which
 `render` and the training step call, takes that path or the anchor
@@ -96,12 +98,12 @@ def _pixel_coords(ts: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _chunks(bins: TileBins, tile_ids: torch.Tensor, config: RenderConfig):
     """(starts, counts, spans) of the tile list: each listed tile's segment
-    start and capped count, and (slice, k_len) spans chunked so that one
-    chunk's [C, K, P] temporaries hold at most CHUNK_ELEMS elements (empty
-    chunks skipped)."""
+    start and capped count (the empty sentinel id gx·gy has none), and
+    (slice, k_len) spans chunked so that one chunk's [C, K, P] temporaries
+    hold at most CHUNK_ELEMS elements (empty chunks skipped)."""
     p = config.tile_size ** 2
-    starts = bins.tile_start[tile_ids].to(torch.int64)
-    counts = torch.clamp(bins.tile_count[tile_ids],
+    starts = F.pad(bins.tile_start, (0, 1))[tile_ids].to(torch.int64)
+    counts = torch.clamp(F.pad(bins.tile_count, (0, 1))[tile_ids],
                          max=config.max_per_tile).to(torch.int64)
     counts_host = counts.cpu()
     n_t = tile_ids.shape[0]
@@ -157,7 +159,9 @@ def composite_tiles(
     config: RenderConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Composite a list of tiles → (rgba [T, P, 4], final_log_t [T, P],
-    last_idx [T, P] int32), P = tile_size², pixels row-major in the tile."""
+    last_idx [T, P] int32), P = tile_size², pixels row-major in the tile.
+    Pixels past the frame's edge are composited as if the frame went on;
+    the empty sentinel id gx·gy gives rgba 0, log-T 0 and last index −1."""
     p = config.tile_size ** 2
     dev = fields.device
     n_t = tile_ids.shape[0]
@@ -209,7 +213,35 @@ def composite_backward_plain(
     d_alpha: torch.Tensor,
 ) -> torch.Tensor:
     """The plain twin of kernel B → per-pair gradient rows [M, 9] in
-    sorted pair order (rows: mx, my, conic a, b, c, r, g, b, opacity).
+    sorted pair order (rows: mx, my, conic a, b, c, r, g, b, opacity),
+    from the forward's residual and the image cotangents: every tile of the
+    frame through `composite_tiles_backward_plain`."""
+    ts = config.tile_size
+    gx, gy = config.grid_size(width, height)
+    tile_ids = torch.arange(gx * gy, device=fields.device)
+    cot = tile_major(torch.cat([d_rgb, d_alpha[..., None]], -1), gx, gy, ts)
+    last = tile_major(composite.last_idx[..., None], gx, gy, ts,
+                      fill=-1)[..., 0]
+    return composite_tiles_backward_plain(fields, bins, tile_ids, width,
+                                          height, config, last, cot)
+
+
+def composite_tiles_backward_plain(
+    fields: torch.Tensor,
+    bins: TileBins,
+    tile_ids: torch.Tensor,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    last_idx: torch.Tensor,
+    d_rgba: torch.Tensor,
+) -> torch.Tensor:
+    """The plain twin of kernel B over a list of tiles → per-pair gradient
+    rows [M, 9] in sorted pair order (rows: mx, my, conic a, b, c, r, g, b,
+    opacity); rows of pairs of unlisted tiles are 0. `last_idx` [T, P] and
+    the cotangent `d_rgba` [T, P, 4] are in the list's layout; pixels past
+    the frame's edge take no part, and the empty sentinel id gx·gy does
+    nothing.
 
     Per tile it recomputes α from the same rank-6 form as the forward,
     T_k from the exclusive log-T cumsum, and the suffix
@@ -221,15 +253,16 @@ def composite_backward_plain(
     the tile cap, and pairs no pixel reached, keep zero rows."""
     ts = config.tile_size
     dev = fields.device
-    gx, gy = config.grid_size(width, height)
-    tile_ids = torch.arange(gx * gy, device=dev)
+    gx, _ = config.grid_size(width, height)
     m = bins.sorted_gidx.shape[0]
     out = torch.zeros((m, GRAD_ROW), dtype=torch.float32, device=dev)
 
-    cot = tile_major(torch.cat([d_rgb, d_alpha[..., None]], -1), gx, gy, ts)
-    last = tile_major(composite.last_idx[..., None], gx, gy, ts,
-                      fill=-1)[..., 0]                       # [T, P]
     px, py = _pixel_coords(ts, dev)
+    tid = tile_ids.to(torch.int64)
+    inside = (((tid % gx) * ts)[:, None] + px.long() < width) & \
+        (((tid // gx) * ts)[:, None] + py.long() < height)     # [T, P]
+    cot = torch.where(inside[..., None], d_rgba, 0.0)
+    last = torch.where(inside, last_idx, -1)
     u = torch.stack([torch.ones_like(px), px, py, px * px, py * py, px * py],
                     dim=-1)                                   # [P, 6]
 
@@ -331,6 +364,29 @@ def rasterize_tiles(
 
     return composite_image(pack_splat_fields(splats), bins, width, height,
                            config)
+
+
+def composite_tiles_auto(splats: ProjectedSplats, tile_ids: torch.Tensor,
+                         width: int, height: int, config: RenderConfig,
+                         gx: int) -> torch.Tensor:
+    """Composite a tile-id subset → [L, ts, ts, 4] rgba, differentiable in
+    the splats: the JAX package's `composite_tiles_auto`, which the
+    tile-sharded paths call with the tiles each rank owns. Bins with
+    `bin_splats` (the dup binning, whatever `config.binning` says, as the
+    JAX package does), then `ops/cuda/raster.py::composite_tiles_subset`:
+    kernel A's and B's tile-list entries for CUDA tensors, the plain twins
+    for CPU tensors. `tile_ids` is int32 [L], ids in [0, gx·gy], padded with
+    the empty sentinel gx·gy (never with a repeated real id)."""
+    from .cuda.raster import composite_tiles_subset
+
+    if config.grid_size(width, height)[0] != gx:
+        raise ValueError(f"gx={gx} is not the frame's {width}x{height} grid")
+    bins = bin_splats(splats, width, height, config)
+    ts = config.tile_size
+    tiles = composite_tiles_subset(pack_splat_fields(splats), bins,
+                                   tile_ids.to(torch.int32), width, height,
+                                   config)
+    return tiles.reshape(-1, ts, ts, 4)
 
 
 def bin_and_composite(splats: ProjectedSplats, width: int, height: int,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels A-D of a checkout, each timed alone, at the smoke size.
+"""Kernels A-D (and E) of a checkout, each timed alone, at the smoke size.
 
     python3 kernel_times.py [--root DIR]
 
@@ -14,14 +14,20 @@ for A and B and `RenderConfig(binning="anchor")` for C and D.
 outside the window, through the wrappers' `prepare_fwd`/`prepare_bwd`
 (every commit from the one that redesigned A and B has them): CUDA events
 span 5 back-to-back launches, median of 7 samples. "wrapper" is the whole
-wrapper call, median of 7. Prints the card line and one JSON line
-{"root": ..., "A": {"kernel_ms", "wrapper_ms"}, "B": ..., "C": ...,
-"D": ...}. Imports nothing of JAX.
+wrapper call, median of 7. Where the checkout has them (`prepare_fwd_tiles`
+/ `prepare_bwd_tiles`), A's and B's tile-list entries E-A and E-B are
+timed the same way over one shard's list: shard 0 of 4 of the tile deal
+`_padded_tile_ids(8160, 4, 32)`, padding turned into the empty sentinel.
+Prints the card line and one JSON line {"root": ..., "A": {"kernel_ms",
+"wrapper_ms", "sha256"}, "B": ..., "C": ..., "D": ..., "E-A": ...,
+"E-B": ...}, "sha256" a digest of the wrapper's outputs (equal digests:
+equal bits). Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -47,6 +53,18 @@ def median_ms(fn, runs=7, warmup=2, repeat=1):
         end.synchronize()
         times.append(start.elapsed_time(end) / repeat)
     return statistics.median(times)
+
+
+def digest(out, h=None) -> str:
+    """SHA-256 of a wrapper's outputs (a tensor or nested tuples of them),
+    so two checkouts' outputs can be compared bit for bit."""
+    h = h or hashlib.sha256()
+    if isinstance(out, torch.Tensor):
+        h.update(out.detach().contiguous().cpu().numpy().tobytes())
+    else:
+        for t in out:
+            digest(t, h)
+    return h.hexdigest()[:16]
 
 
 def main():
@@ -107,10 +125,28 @@ def main():
             "D": ac.prepare_bwd(fields, abins, W, H, cfg_a, comp_a, merge,
                                 d_rgb, d_alpha)[0],
         }
+        if hasattr(rc, "prepare_fwd_tiles"):
+            from gaussian_splatting_web_tpu_torch.parallel.render_sharded \
+                import shard_tile_ids
+            ids = shard_tile_ids(cfg.num_tiles(W, H), 4, 32, 0).to(dev)
+            out = rc.composite_tiles_list(fields, bins, ids, W, H, cfg)
+            d_rgba = torch.randn((ids.shape[0], 256, 4), generator=gen,
+                                 device=dev)
+            wrappers["E-A"] = lambda: rc.composite_tiles_list(
+                fields, bins, ids, W, H, cfg)
+            wrappers["E-B"] = lambda: rc.composite_tiles_backward(
+                fields, bins, ids, W, H, cfg, out.final_log_t, out.last_idx,
+                d_rgba)
+            runs["E-A"] = rc.prepare_fwd_tiles(fields, bins, ids, W, H,
+                                               cfg)[0]
+            runs["E-B"] = rc.prepare_bwd_tiles(
+                fields, bins, ids, W, H, cfg, out.final_log_t, out.last_idx,
+                d_rgba)[0]
         result = {"root": root}
         for name, run in runs.items():
             result[name] = {"kernel_ms": median_ms(run, repeat=5),
-                            "wrapper_ms": median_ms(wrappers[name])}
+                            "wrapper_ms": median_ms(wrappers[name]),
+                            "sha256": digest(wrappers[name]())}
     print(json.dumps(result))
 
 

@@ -1,6 +1,7 @@
 """Kernels A-D on the card vs their plain PyTorch twins, at small sizes
 (including the adversarial scene of their footprint cull), their tile
-schedules, and the launches of a render and of a training step.
+schedules, and the launches of a render and of a training step; A's and B's
+tile-list entries (E) against the full-frame kernels and the list twins.
 
 Marked `gpu`: every test skips without a CUDA device. The file imports
 neither jax nor tests/conftest.py, so it runs on the machine with the card:
@@ -26,13 +27,20 @@ from gaussian_splatting_web_tpu_torch.core.types import GaussianCloud
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
 from gaussian_splatting_web_tpu_torch.ops.projection import project_gaussians
 from gaussian_splatting_web_tpu_torch.ops.rasterize import (
+    assemble_image,
     composite_backward_plain,
     composite_image_plain,
+    composite_tiles,
+    composite_tiles_backward_plain,
     fold_pair_grads,
     pack_splat_fields,
     render,
+    tile_major,
 )
 from gaussian_splatting_web_tpu_torch.ops.sort import bin_splats
+from gaussian_splatting_web_tpu_torch.parallel.render_sharded import (
+    shard_tile_ids,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -191,6 +199,130 @@ def test_kernels_schedule_tiles_heavy_first(device):
     for got in (order, order_b):
         assert sorted(got.tolist()) == list(range(bins.tile_count.shape[0]))
         assert torch.equal(capped[got.long()], want)
+
+
+def _tiles_vs_full(cloud, w, h, dev, cfg=CFG, n_shards=3, chunk=2):
+    """Kernels A's and B's tile-list entries over the sentinel-padded
+    strips of `n_shards` tile shards: the stitched tiles equal full-frame
+    A's image and residual bit for bit, the sentinel slots are empty, and
+    the strips' B rows add up to full-frame B's bit for bit (each pair's
+    row comes from one strip); on each strip, A against the list twin by
+    the image rule on the pixels inside the frame and B against the list
+    twin after the fold by the gradient rule."""
+    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    splats = project_gaussians(cloud.to(dev), camera.to(dev), w, h, cfg)
+    bins = bin_splats(splats, w, h, cfg)
+    fields = pack_splat_fields(splats)
+    gx, gy = cfg.grid_size(w, h)
+    t = gx * gy
+    full = raster_cuda.composite_image(fields, bins, w, h, cfg)
+    gen = torch.Generator().manual_seed(0)
+    d_rgb = torch.randn((h, w, 3), generator=gen).to(dev)
+    d_alpha = torch.randn((h, w), generator=gen).to(dev)
+    rows_full = raster_cuda.composite_backward(fields, bins, w, h, cfg, full,
+                                               d_rgb, d_alpha)
+    cot = tile_major(torch.cat([d_rgb, d_alpha[..., None]], -1), gx, gy, 16)
+    inside = tile_major(torch.ones((h, w, 1), device=dev), gx, gy,
+                        16)[..., 0] > 0
+    stitched = torch.zeros((t, 256, 6), device=dev)
+    rows = torch.zeros_like(rows_full)
+    n = fields.shape[0]
+    for s in range(n_shards):
+        ids = shard_tile_ids(t, n_shards, chunk, s).to(dev)
+        real = ids < t
+        out = raster_cuda.composite_tiles_list(fields, bins, ids, w, h, cfg)
+        assert not out.rgba[~real].any() and not out.final_log_t[~real].any()
+        assert (out.last_idx[~real] == -1).all()
+        stitched[ids[real].long()] = torch.cat(
+            [out.rgba, out.final_log_t[..., None],
+             out.last_idx[..., None].float()], -1)[real]
+        rgba, _, _ = composite_tiles(fields, bins, ids, gx, cfg)
+        keep = inside[ids.clamp(max=t - 1).long()] & real[:, None]
+        bad = (out.rgba - rgba).abs().amax(-1)[keep] > ATOL
+        assert bad.float().mean().item() <= MAX_BAD_FRAC, int(bad.sum())
+        d_list = torch.where(real[:, None, None],
+                             cot[ids.clamp(max=t - 1).long()], 0.0)
+        part = raster_cuda.composite_tiles_backward(
+            fields, bins, ids, w, h, cfg, out.final_log_t, out.last_idx,
+            d_list)
+        rows += part
+        want = composite_tiles_backward_plain(fields, bins, ids, w, h, cfg,
+                                              out.last_idx, d_list)
+        stats = grad_parity(fold_pair_grads(part, bins, n).T,
+                            fold_pair_grads(want, bins, n).T)
+        assert grad_parity_ok(stats, extra=2), stats
+    torch.cuda.synchronize()
+    img = assemble_image(stitched, w, h, gx, gy)
+    assert torch.equal(img[..., :3], full.rgb)
+    assert torch.equal(img[..., 3], full.alpha)
+    assert torch.equal(img[..., 4], full.final_log_t)
+    assert torch.equal(img[..., 5].int(), full.last_idx)
+    assert torch.equal(rows, rows_full) and rows.abs().max() > 0
+
+
+@pytest.mark.parametrize("scene", ["random", "opaque", "ragged",
+                                   "adversarial"])
+def test_tile_list_kernels_match_full_frame_and_plain(device, scene):
+    if scene == "random":
+        _tiles_vs_full(_scene(0), 64, 48, device)
+    elif scene == "opaque":
+        _tiles_vs_full(_scene(5, n=40, opaque=True), 48, 48, device,
+                       n_shards=2)
+    elif scene == "ragged":
+        _tiles_vs_full(_scene(3, n=200), 72, 40, device,
+                       cfg=CFG.replace(max_per_tile=32), n_shards=4)
+    else:
+        _tiles_vs_full(make_adversarial_scene(device="cpu"), 96, 64, device,
+                       n_shards=5, chunk=1)
+
+
+def test_tile_list_autograd_launches_and_schedule(device):
+    """composite_tiles_subset on the card: E-A forward and E-B backward once
+    each; over every tile its gradient equals CompositeFn's bit for bit;
+    both entries write a heavy-first schedule of the list positions."""
+    w, h = 72, 40
+    cfg = CFG.replace(max_per_tile=32)
+    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    splats = project_gaussians(_scene(3, n=200).to(device), camera.to(device),
+                               w, h, cfg)
+    bins = bin_splats(splats, w, h, cfg)
+    fields = pack_splat_fields(splats).detach().requires_grad_(True)
+    gx, gy = cfg.grid_size(w, h)
+    t = gx * gy
+    weight = torch.rand((h, w, 4), generator=torch.Generator().manual_seed(1)
+                        ).to(device)
+    full = raster_cuda.composite_image(fields, bins, w, h, cfg)
+    (g_full,) = torch.autograd.grad(
+        (torch.cat([full.rgb, full.alpha[..., None]], -1) * weight).sum(),
+        fields)
+    ids = torch.cat([torch.arange(t), torch.full((3,), t)]).int().to(device)
+    raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
+    tiles = raster_cuda.composite_tiles_subset(fields, bins, ids, w, h, cfg)
+    img = assemble_image(tiles[:t], w, h, gx, gy)
+    (g_list,) = torch.autograd.grad((img * weight).sum(), fields)
+    torch.cuda.synchronize()
+    assert raster_cuda.launches_tiles == 1
+    assert raster_cuda.launches_tiles_bwd == 1
+    assert torch.equal(g_list, g_full)
+
+    run, (out, order) = raster_cuda.prepare_fwd_tiles(fields.detach(), bins,
+                                                      ids, w, h, cfg)
+    run()
+    run_b, (_, order_b) = raster_cuda.prepare_bwd_tiles(
+        fields.detach(), bins, ids, w, h, cfg, out.final_log_t, out.last_idx,
+        torch.ones((ids.shape[0], 256, 4), device=device))
+    run_b()
+    torch.cuda.synchronize()
+    capped = torch.clamp(torch.nn.functional.pad(bins.tile_count, (0, 1)),
+                         max=cfg.max_per_tile)[ids.long()]
+    want = capped[raster_cuda.tile_list_order(bins, ids, cfg).long()]
+    for got in (order, order_b):
+        assert sorted(got.tolist()) == list(range(ids.shape[0]))
+        assert torch.equal(capped[got.long()], want)
+    with pytest.raises(ValueError, match="more than once"):
+        raster_cuda.composite_tiles_list(fields.detach(), bins,
+                                         torch.cat([ids, ids[:1]]), w, h,
+                                         cfg)
 
 
 def test_grads_flow_through_kernels(device):

@@ -532,12 +532,16 @@ def test_load_dataset_matches_jax(tmp_path):
         np.testing.assert_array_equal(g.camera.view.numpy(),
                                       np.asarray(r.camera.view))
     assert scene_extent(got) == pytest.approx(jax_scene_extent(ref), rel=1e-6)
-    with pytest.raises(NotImplementedError, match="resizing"):
-        load_dataset(camfile, imgdir, 16, 12)
+    # another size, and a file that is not .png, go through pillow as in
+    # the JAX package (tests/test_torch_dataset_eval.py: real JPEGs)
     os.rename(os.path.join(imgdir, "view0.png"),
               os.path.join(imgdir, "view0.jpg"))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        load_dataset(camfile, imgdir, 32, 24)
+    for w, h in ((16, 12), (32, 24)):
+        got = load_dataset(camfile, imgdir, w, h)
+        ref = jax_load_dataset(camfile, imgdir, w, h)
+        assert len(got) == len(ref) == 3
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.image, r.image)
 
 
 def test_cli_train_cpu_writes_loadable_ply(tmp_path, capsys):
