@@ -85,13 +85,33 @@ Tile sharding (A's and B's tile-list entries E-A and E-B, `parallel/`):
              by the image rule and E-B against it by the gradient rule; E-A's
              schedule of list positions heavy first; E-A and E-B timed over
              one shard's list beside full-frame A and B in the same phase
- 16 sharded  a one-rank NCCL group (`file://` store): `render_sharded` equal
-             to phase 4's `render` bit for bit, one E-A launch; one
-             `make_sharded_train_step` step on two 1080p views: loss equal
-             to the unsharded loss (rel 1e-5), gradients by the gradient
-             rule, E-A and E-B twice each and no other kernel
+ 16 sharded  a one-rank NCCL group (`file://` store), kept open for
+             phase 18: `render_sharded` equal to phase 4's `render` bit
+             for bit, one E-A launch; one `make_sharded_train_step` step
+             on two 1080p views: loss equal to the unsharded loss (rel
+             1e-5), gradients by the gradient rule, E-A and E-B twice each
+             and no other kernel
  17 eval     `cli eval --device cuda` on phase 8's capture and trained PLY
              prints its JSON line with a finite PSNR
+
+Gaussian sharding (`parallel/gaussian_sharded.py`, E-A and E-B through
+`composite_tiles_auto`) and the config leftovers:
+
+ 18 gsharded on phase 16's one-rank NCCL group: `render_gaussian_sharded`
+             and `render_gaussian_sharded_banded` with stream "a2a" and
+             "ring" equal to phase 4's `render` bit for bit with overflow
+             0, one E-A launch each; one ring, one banded a2a and one
+             banded ring-stream `make_gaussian_sharded_train_step` step on
+             phase 16's two views against the unsharded loss (rel 1e-5)
+             and gradients (the gradient rule), E-A 2 and E-B 2 each and no
+             other kernel; `dryrun_multichip(1)` in the group
+ 19 config   `debug_selected` on a splat near the centre through kernel A
+             (`render`, `rasterize_tiles`) against the plain twin on the
+             same highlighted fields (the image rule); a
+             `dtype="bfloat16"` render through A against the twin on the
+             same bf16 inputs (the image rule) and against phase 4's f32
+             frame (mean |diff| < 5e-3, p99 < 0.05, JAX
+             tests/test_rasterize.py:155-176)
 
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
@@ -139,6 +159,7 @@ Prints the card line, a JSON line of kernel results, and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -153,10 +174,18 @@ import torch
 import torch.distributed as dist
 
 from gaussian_splatting_web_tpu_torch.bench_lib import (
+    GRAD_EXTRA,
     grad_parity,
     grad_parity_ok,
     make_adversarial_scene,
     make_scene,
+    orbit_camera,
+    step_parity,
+    unsharded_reference,
+)
+from gaussian_splatting_web_tpu_torch.bench_lib import IMAGE_ATOL as ATOL
+from gaussian_splatting_web_tpu_torch.bench_lib import (
+    IMAGE_BAD_FRAC as MAX_BAD_FRAC,
 )
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.core.camera import default_camera
@@ -182,16 +211,25 @@ from gaussian_splatting_web_tpu_torch.ops.rasterize import (
 )
 from gaussian_splatting_web_tpu_torch.ops.sort import bin_splats
 from gaussian_splatting_web_tpu_torch.parallel import (
+    banded_candidates,
+    banded_candidates_a2a,
+    banded_cap_hop,
+    banded_tile_rows,
+    init_sharded_train_state,
+    make_gaussian_sharded_train_step,
     make_mesh,
     make_sharded_train_step,
+    render_gaussian_sharded,
+    render_gaussian_sharded_banded,
     render_sharded,
+    shard_model,
 )
+from gaussian_splatting_web_tpu_torch.parallel.dryrun import dryrun_multichip
 from gaussian_splatting_web_tpu_torch.parallel.render_sharded import (
     shard_tile_ids,
 )
 from gaussian_splatting_web_tpu_torch.train.checkpoint import save_ply
 from gaussian_splatting_web_tpu_torch.train.densify import compact
-from gaussian_splatting_web_tpu_torch.train.loss import photometric_loss
 from gaussian_splatting_web_tpu_torch.train.train_loop import (
     TrainLoopConfig,
     train,
@@ -216,8 +254,7 @@ CPU_PAIRS, CPU_OVERFLOW = 2_150_328, 13
 # the same for the anchor binning: live pairs, overflow (dup-tier tiles past
 # max_dup) and (tile, range) covers the range overruns
 ANCHOR_PAIRS, ANCHOR_OVERFLOW, ANCHOR_TRUNCATED = 2_150_377, 248, 264
-ATOL, MAX_BAD_FRAC, LOG_T_TOL = 2e-4, 2e-4, 1e-4
-GRAD_EXTRA = 2            # knife-edge outliers allowed on top of 1e-5 of n
+LOG_T_TOL = 1e-4          # the image rule and GRAD_EXTRA: bench_lib
 TILE_SHARDS, TILE_CHUNK = 4, 32   # phase 15's tile deal (the default chunk)
 KERNELS = {
     "raster_fwd": ("gaussian_splatting_web_tpu_torch/csrc/raster_fwd.cu",
@@ -771,71 +808,227 @@ def phase_tiles(dev, cfg, full):
     return results
 
 
-def phase_sharded(dev, cloud, cfg, frame):
-    """Phase 16: a one-rank NCCL group. `render_sharded` equals `render`
-    (phase 4's frame) bit for bit; one `make_sharded_train_step` step on
-    two 1080p views against the unsharded loss and gradients → E's
-    launches in that step."""
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL process group (`file://` store) → its 1 × 1 mesh;
+    phases 16 and 18 run in it."""
     torch.cuda.set_device(torch.cuda.current_device())
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                 world_size=1, rank=0)
         try:
-            mesh = make_mesh()
-            camera = bench_camera(W, H, dev)
-            reset_counts()
-            with torch.no_grad():
-                rgb, alpha = render_sharded(cloud, camera, W, H, mesh, cfg)
-            torch.cuda.synchronize()
-            render_counts = launch_counts()
-            check(torch.equal(rgb, frame), "render_sharded on one rank "
-                  "differs from render")
-            check(render_counts["E-A"] == 1 and render_counts["A"] == 0,
-                  f"render_sharded launched {render_counts}")
-
-            cams = [orbit_camera(i, 8, W, H).to(dev) for i in range(2)]
-            with torch.no_grad():
-                targets = torch.stack([0.8 * render(cloud, c, W, H, cfg)[0]
-                                       for c in cams])
-            ref = GaussianModel.from_cloud(cloud)
-            ref_loss = sum(photometric_loss(
-                render(ref.to_cloud(), c, W, H, cfg)[0], tgt)
-                for c, tgt in zip(cams, targets)) / 2
-            ref_loss.backward()
-            ref_loss = ref_loss.detach()
-            model = GaussianModel.from_cloud(cloud)
-            state = TrainState(model, make_optimizer(model))
-            step = make_sharded_train_step(W, H, mesh, cfg)
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, loss = step(state, cams, targets)
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3
-            counts = launch_counts()
+            yield make_mesh()
         finally:
             dist.destroy_process_group()
-    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
-    check(rel <= 1e-5, f"sharded loss {float(loss)} vs {float(ref_loss)}")
-    names = [f for f in PARAMS if getattr(model, f).numel()]
-    got = [getattr(model, f).grad for f in names]
-    want = [getattr(ref, f).grad for f in names]
-    stats = grad_parity(got, want)
-    check(grad_parity_ok(stats, GRAD_EXTRA),
-          f"sharded gradients outside the gradient rule: {stats}")
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def sharded_step_check(step, state, ref, what):
+    """One sharded step on `bench_lib.unsharded_reference`'s two views
+    against its loss and gradients (`bench_lib.step_parity`) → (counts,
+    step ms, loss, parity); E-A 2 and E-B 2 and no other kernel may
+    launch."""
+    cams, targets = ref[0], ref[1]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(state, cams, targets)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    loss = float(out[1])
+    parity = step_parity(loss, [getattr(state.model, f).grad
+                                for f in ref[3]], ref)
+    check(parity["ok"], f"{what}: loss {loss} vs unsharded {ref[2]} (rel "
+          f"{parity['rel']:.2e}), gradients {parity['stats']}")
     check(counts == {**{k: 0 for k in counts}, "E-A": 2, "E-B": 2},
-          f"a sharded step on two views launched {counts}")
+          f"{what} on two views launched {counts}")
+    return counts, step_ms, loss, parity
+
+
+def phase_sharded(dev, cloud, cfg, frame, mesh, ref):
+    """Phase 16, on the one-rank group: `render_sharded` equals `render`
+    (phase 4's frame) bit for bit; one `make_sharded_train_step` step on
+    two 1080p views against the unsharded loss and gradients → E's
+    launches in that step."""
+    camera = bench_camera(W, H, dev)
+    reset_counts()
+    with torch.no_grad():
+        rgb, alpha = render_sharded(cloud, camera, W, H, mesh, cfg)
+    torch.cuda.synchronize()
+    render_counts = launch_counts()
+    check(torch.equal(rgb, frame), "render_sharded on one rank "
+          "differs from render")
+    check(render_counts["E-A"] == 1 and render_counts["A"] == 0,
+          f"render_sharded launched {render_counts}")
+    model = GaussianModel.from_cloud(cloud)
+    state = TrainState(model, make_optimizer(model))
+    counts, step_ms, loss, parity = sharded_step_check(
+        make_sharded_train_step(W, H, mesh, cfg), state, ref, "sharded step")
+    rel, stats, equal = parity["rel"], parity["stats"], parity["bitwise"]
     print(f"[16 sharded] one-rank NCCL mesh {mesh.shape}: render_sharded "
           f"equal to render bit for bit (launches "
           + " ".join(f"{k}={v}" for k, v in render_counts.items() if v)
           + f"); one sharded step on two {W}x{H} views: loss "
-          f"{float(loss):.6f} vs unsharded {float(ref_loss):.6f} (rel "
+          f"{loss:.6f} vs unsharded {ref[2]:.6f} (rel "
           f"{rel:.2e}), gradients p99 {stats['p99']:.2e}, "
           f"{'equal bit for bit' if equal else 'not bitwise equal'}; "
           "launches " + " ".join(f"{k}={v}" for k, v in counts.items() if v)
           + f"; step {step_ms:.1f} ms (host clock, one step)")
     return counts
+
+
+def phase_gaussian_sharded(dev, cloud, cfg, frame, mesh, ref):
+    """Phase 18, on the one-rank group: the Gaussian-sharded ring render
+    and the banded renders (a2a and ring streams) equal `render` (phase
+    4's frame) bit for bit with overflow 0, one E-A launch each; one ring,
+    one banded a2a and one banded ring-stream step of
+    `make_gaussian_sharded_train_step` on two 1080p views against the
+    unsharded loss and gradients, E-A 2 and E-B 2 each; the dry run in the
+    group."""
+    camera = bench_camera(W, H, dev)
+    shard = shard_model(cloud, mesh)
+
+    def run(name):
+        if name == "ring":
+            rgb, alpha = render_gaussian_sharded(shard, camera, W, H, mesh,
+                                                 cfg)
+            return rgb, 0
+        rgb, _, over = render_gaussian_sharded_banded(
+            shard, camera, W, H, mesh, cfg, stream=name.split()[1])
+        return rgb, int(over)
+
+    renders = []
+    for name in ("ring", "banded a2a", "banded ring"):
+        reset_counts()
+        rgb, over = run(name)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(torch.equal(rgb, frame), f"Gaussian-sharded {name} render on "
+              "one rank differs from render")
+        check(over == 0, f"Gaussian-sharded {name} render: overflow {over}")
+        check(counts == {**{k: 0 for k in counts}, "E-A": 1},
+              f"Gaussian-sharded {name} render launched {counts}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(name)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        renders.append(f"{name} {statistics.median(times):.2f}")
+    # the selection stage alone (S = 1: one band, cap_hop = N)
+    gy = cfg.grid_size(W, H)[1]
+    with torch.no_grad():
+        splats = project_gaussians(shard, camera, W, H, cfg)
+        select_ms = {}
+        for name, select in (("a2a", banded_candidates_a2a),
+                             ("ring", banded_candidates)):
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                select(splats, W, H, mesh, banded_tile_rows(gy, 1),
+                       banded_cap_hop(cloud.num_gaussians, 1, 2.5), cfg)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            select_ms[name] = statistics.median(times[1:])
+        del splats
+    steps = []
+    for name, banded, stream in (("ring", False, "a2a"),
+                                 ("banded a2a", True, "a2a"),
+                                 ("banded ring", True, "ring")):
+        state = init_sharded_train_state(GaussianModel.from_cloud(cloud),
+                                         mesh)
+        step = make_gaussian_sharded_train_step(W, H, mesh, cfg,
+                                                banded=banded, stream=stream)
+        counts, step_ms, loss, parity = sharded_step_check(
+            step, state, ref, f"Gaussian-sharded {name} step")
+        rel, stats, equal = (parity["rel"], parity["stats"],
+                             parity["bitwise"])
+        steps.append(f"{name}: loss {loss:.6f} (rel {rel:.2e}), gradients "
+                     f"p99 {stats['p99']:.2e}, "
+                     f"{'equal bit for bit' if equal else 'not bitwise equal'}"
+                     f", launches " + " ".join(
+                         f"{k}={v}" for k, v in counts.items() if v)
+                     + f", step {step_ms:.1f} ms")
+        del state, step
+    losses = dryrun_multichip(1)
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"dryrun_multichip(1) losses {losses}")
+    print(f"[18 gsharded] one-rank NCCL mesh {mesh.shape}, "
+          f"{cloud.num_gaussians} splats at {W}x{H}: renders equal to "
+          "render bit for bit, overflow 0, one E-A launch each (host clock, "
+          "medians of 3 in ms: " + ", ".join(renders)
+          + "; the banded selection alone "
+          + ", ".join(f"{k} {v:.2f}" for k, v in select_ms.items())
+          + f"); one step on two views vs unsharded {ref[2]:.6f}: "
+          + "; ".join(steps) + " (host clock, one step each); "
+          "dryrun_multichip(1): " + ", ".join(
+              f"{k} {v:.5f}" for k, v in losses.items()))
+
+
+def phase_config(dev, cloud, cfg, frame):
+    """Phase 19: `debug_selected` and bf16 storage on the card. The
+    highlight of a splat near the frame's centre through kernel A (`render`
+    and `rasterize_tiles`) against the plain twin on the same highlighted
+    fields, by the image rule; a `dtype="bfloat16"` render against the
+    twin on the same bf16 inputs (the image rule) and against phase 4's f32
+    frame within JAX tests/test_rasterize.py:155-176's bounds (mean |diff|
+    < 5e-3, p99 < 0.05)."""
+    camera = bench_camera(W, H, dev)
+    with torch.no_grad():
+        splats = project_gaussians(cloud, camera, W, H, cfg)
+        bins = bin_splats(splats, W, H, cfg)
+        dist_c = (splats.mean2d - splats.mean2d.new_tensor([W / 2, H / 2])
+                  ).norm(dim=-1)
+        pick = splats.valid & (splats.radius >= 8) & (splats.radius <= 64)
+        check(bool(pick.any()), "no splat of radius 8-64 px to highlight")
+        k = int(torch.where(pick, dist_c, float("inf")).argmin())
+        cfg_d = cfg.replace(debug_selected=k)
+        reset_counts()
+        img_d, _ = render(cloud, camera, W, H, cfg_d)
+        got = rasterize_tiles(splats, bins, W, H, cfg_d)
+        counts = launch_counts()
+        check(counts == {**{c: 0 for c in counts}, "A": 2},
+              f"debug_selected renders launched {counts}")
+        check(torch.equal(img_d, got.rgb), "debug_selected: render and "
+              "rasterize_tiles differ")
+        fields = rasterize.highlight_selected(pack_splat_fields(splats),
+                                              cfg_d)
+        want = composite_image_plain(fields, bins, W, H, cfg_d)
+        err_d = compare(got, want, "debug_selected")
+        changed = int(((img_d - frame).abs().amax(-1) > 1e-3).sum())
+        check(changed > 0, "debug_selected changed no pixel")
+
+        bf = cloud.with_storage_dtype("bfloat16")
+        cfg_b = cfg.replace(dtype="bfloat16")
+        reset_counts()
+        img_b, aux_b = render(cloud, camera, W, H, cfg_b)
+        counts_b = launch_counts()
+        check(counts_b == {**{c: 0 for c in counts_b}, "A": 1},
+              f"bf16 render launched {counts_b}")
+        splats_b = project_gaussians(bf, camera, W, H, cfg)
+        bins_b = bin_splats(splats_b, W, H, cfg)
+        fields_b = pack_splat_fields(splats_b)
+        err_b = compare(raster_cuda.composite_image(fields_b, bins_b, W, H,
+                                                    cfg),
+                        composite_image_plain(fields_b, bins_b, W, H, cfg),
+                        "bf16 storage")
+        check(torch.equal(img_b, raster_cuda.composite_image(
+            fields_b, bins_b, W, H, cfg).rgb), "bf16: render differs from "
+              "the kernel on the pre-converted cloud")
+        diff = (img_b - frame).abs()
+        mean, p99 = float(diff.mean()), float(torch.quantile(
+            diff.reshape(-1), 0.99))
+        check(mean < 5e-3 and p99 < 0.05,
+              f"bf16 frame off the f32 frame: mean {mean:.2e}, p99 {p99:.2e}")
+    print(f"[19 config] debug_selected={k} (radius "
+          f"{float(splats.radius[k]):.0f} px) through A vs its twin: max "
+          f"abs err {err_d['max_abs_err']:.3e}, {changed} pixels changed; "
+          f"dtype=bfloat16 through A vs its twin on the bf16 inputs: max abs "
+          f"err {err_b['max_abs_err']:.3e}; vs the f32 frame mean |diff| "
+          f"{mean:.2e}, p99 {p99:.2e} (bound 5e-3, 0.05); launches A=2 and "
+          "A=1")
 
 
 def phase_eval(capture):
@@ -1201,13 +1394,6 @@ def phase_cli_render():
               f"cli says: {last[0].split('  ', 1)[-1]}")
 
 
-def orbit_camera(i, n, w, h, radius=8.0):
-    a = 2 * math.pi * i / n
-    return default_camera(w, h, eye=(radius * math.sin(a), 0.5,
-                                     -radius * math.cos(a)),
-                          center=(0, 0, 0))
-
-
 def write_capture(views, folder):
     """Views as INRIA writes a capture: PNGs and cameras.json → (cameras
     path, images folder)."""
@@ -1362,7 +1548,12 @@ def main():
         phase_serve(dev, cloud, cfg)
         phase_serve(dev, cloud, cfg_a, n_events=2, label="13 anchor",
                     kernel="C")
-    sharded = phase_sharded(dev, cloud, cfg, frame)
+    ref = unsharded_reference(cloud, W, H, cfg)
+    with one_rank_group() as mesh:
+        sharded = phase_sharded(dev, cloud, cfg, frame, mesh, ref)
+        phase_gaussian_sharded(dev, cloud, cfg, frame, mesh, ref)
+    del ref
+    phase_config(dev, cloud, cfg, frame)
     del cloud
     phase_cli_render()
     with tempfile.TemporaryDirectory() as capture_dir:

@@ -4,21 +4,30 @@ itself is ROADMAP §1 item 7).
 `make_scene` makes the same NumPy draws in the same order as the JAX
 package's `bench_lib.make_scene`, so one seed gives both packages
 identical arrays. `grad_parity` is the scale-relative rule of the JAX
-package's `bench_lib._grad_parity`.
+package's `bench_lib._grad_parity`; `image_rule` is the repo's image rule
+(`tests/conftest.py::assert_images_close`). `unsharded_reference` and
+`step_parity` hold a sharded training step to the unsharded one
+(`chip_smoke.py` on one card, `multichip_check.py` across the cards).
 """
 
 from __future__ import annotations
 
+import math
 import types
 
 import numpy as np
 import torch
 
+from .core.camera import default_camera
 from .core.types import GaussianCloud
 
 # the parity gate: p99 of the scale-relative error, and the share of
 # elements off by more than 1% of their leaf's scale
 GRAD_P99, GRAD_BIG, GRAD_BIG_FRAC = 1e-3, 1e-2, 1e-5
+GRAD_EXTRA = 2            # knife-edge outliers allowed on top of 1e-5 of n
+# the image rule: at most IMAGE_BAD_FRAC of the pixels off by more than
+# IMAGE_ATOL in some channel
+IMAGE_ATOL, IMAGE_BAD_FRAC = 2e-4, 2e-4
 
 
 def make_scene(n, seed=0, sh_degree=3, log_scale_range=(-6.0, -4.0),
@@ -111,3 +120,59 @@ def grad_parity_ok(stats: dict, extra: int = 0) -> bool:
     knife-edge outliers) off by more than 1%."""
     return (stats["p99"] <= GRAD_P99
             and stats["nbig"] <= GRAD_BIG_FRAC * stats["n"] + extra)
+
+
+def image_rule(img: torch.Tensor, ref: torch.Tensor) -> dict:
+    """[..., H, W, C] images → the largest channel error, the share of
+    pixels over IMAGE_ATOL (`bad_frac`), whether they are equal bit for
+    bit, and whether the rule holds (`ok`)."""
+    diff = (img - ref).abs().amax(-1)
+    bad = float((diff > IMAGE_ATOL).float().mean())
+    return {"max_abs_err": float(diff.max()), "bad_frac": bad,
+            "bitwise": bool(torch.equal(img, ref)),
+            "ok": bad <= IMAGE_BAD_FRAC}
+
+
+def orbit_camera(i, n, w, h, radius=8.0):
+    """View i of n around the origin at `radius`, 0.5 above it."""
+    a = 2 * math.pi * i / n
+    return default_camera(w, h, eye=(radius * math.sin(a), 0.5,
+                                     -radius * math.cos(a)),
+                          center=(0, 0, 0))
+
+
+def unsharded_reference(cloud: GaussianCloud, w: int, h: int, config,
+                        views: int = 2):
+    """The views 0..views-1 of 8 around the scene, their targets (0.8 ×
+    `render`), and the unsharded mean photometric loss over them with the
+    parameter gradients of a model made from `cloud` → (cameras, targets,
+    loss, {parameter: gradient}); the sharded steps are held to it."""
+    from .models.gaussian_model import PARAMS, GaussianModel
+    from .ops.rasterize import render
+    from .train.loss import photometric_loss
+
+    cams = [orbit_camera(i, 8, w, h).to(cloud.xyz.device)
+            for i in range(views)]
+    with torch.no_grad():
+        targets = torch.stack([0.8 * render(cloud, c, w, h, config)[0]
+                               for c in cams])
+    ref = GaussianModel.from_cloud(cloud)
+    loss = sum(photometric_loss(render(ref.to_cloud(), c, w, h, config)[0],
+                                tgt) for c, tgt in zip(cams, targets)) / views
+    loss.backward()
+    grads = {f: getattr(ref, f).grad for f in PARAMS
+             if getattr(ref, f).numel()}
+    return cams, targets, float(loss.detach()), grads
+
+
+def step_parity(loss: float, grads, reference) -> dict:
+    """A sharded step's loss and gradients (in the reference's parameter
+    order, shards put back together) against `unsharded_reference`'s →
+    the loss's relative error `rel`, `grad_parity`'s `stats`, `bitwise`,
+    and `ok`: rel ≤ 1e-5 and the gradient rule with GRAD_EXTRA."""
+    ref_loss, want = reference[2], list(reference[3].values())
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    stats = grad_parity(grads, want)
+    return {"rel": rel, "stats": stats,
+            "bitwise": all(torch.equal(a, b) for a, b in zip(grads, want)),
+            "ok": rel <= 1e-5 and grad_parity_ok(stats, GRAD_EXTRA)}

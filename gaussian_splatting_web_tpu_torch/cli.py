@@ -2,21 +2,25 @@
 is not ported yet, ROADMAP §1 item 7):
 
   python -m gaussian_splatting_web_tpu_torch.cli info   --ply scene.ply
-  python -m gaussian_splatting_web_tpu_torch.cli render --ply scene.ply [--cameras cam.json] --out out/ [--device cuda]
+  python -m gaussian_splatting_web_tpu_torch.cli render --ply scene.ply [--cameras cam.json] --out out/ [--device cuda] [--gaussian-sharded[=ring|banded]]
   python -m gaussian_splatting_web_tpu_torch.cli serve  --ply scene.ply --port 8090 [--device cuda]
-  python -m gaussian_splatting_web_tpu_torch.cli train  --cameras cameras.json --images images/ [--ply init.ply] --out trained.ply [--checkpoint dir] [--device cuda]
+  python -m gaussian_splatting_web_tpu_torch.cli train  --cameras cameras.json --images images/ [--ply init.ply] --out trained.ply [--checkpoint dir [--restarts N]] [--multihost] [--device cuda]
   python -m gaussian_splatting_web_tpu_torch.cli eval   --ply trained.ply --cameras cameras.json --images images/ [--device cuda]
 
 `eval` prints PSNR and SSIM per view on stderr and one JSON line
 {"views", "psnr_mean", "ssim_mean"} on stdout.
 
 `--device` defaults to `cuda`; a CUDA device that is not there is an
-error, never a silent switch to the CPU.
+error, never a silent switch to the CPU. `render --gaussian-sharded` and
+`train --multihost` join the process group `torchrun` describes
+(`parallel/multihost.py`: NCCL on the cards, gloo with `--device cpu`);
+without one, `render --gaussian-sharded` runs on a 1 × 1 mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -24,6 +28,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import RenderConfig
 from .core import camera as cam
@@ -56,13 +61,69 @@ def _load(args, device):
     print(f"\rloaded {cloud.num_gaussians} gaussians "
           f"(SH degree {cloud.sh_degree}) in {time.time()-t0:.2f}s",
           file=sys.stderr)
+    if getattr(args, "dtype", None):
+        cloud = cloud.with_storage_dtype(args.dtype)
     return cloud
 
 
 def _config(args) -> RenderConfig:
-    kw = {f: getattr(args, f) for f in ("tile_size", "max_dup", "max_per_tile")
+    kw = {f: getattr(args, f) for f in ("tile_size", "max_dup", "max_per_tile",
+                                        "tile_chunk", "dtype")
           if getattr(args, f, None) is not None}
     return RenderConfig(**kw)
+
+
+def _pad_to_multiple(cloud, s: int):
+    """Pad N to a multiple of `s` with dead gaussians (opacity logit −100,
+    zeros elsewhere: they never rasterize), as the JAX CLI does."""
+    pad = -cloud.num_gaussians % s
+    if not pad:
+        return cloud
+
+    def grow(name):
+        a = getattr(cloud, name)
+        tail = torch.full((pad,) + a.shape[1:],
+                          -100.0 if name == "opacity_logit" else 0.0,
+                          dtype=a.dtype, device=a.device)
+        return torch.cat([a, tail])
+
+    return type(cloud)(**{f.name: grow(f.name)
+                          for f in dataclasses.fields(cloud)})
+
+
+def _gaussian_sharded_renderer(args, cloud, config):
+    """(render_fn, is_writer) for `render --gaussian-sharded`: this rank's
+    shard of the (padded) cloud rendered by the ring or the banded path
+    over every rank of the process group, or over a 1 × 1 mesh alone."""
+    from .parallel import (
+        make_mesh,
+        render_gaussian_sharded,
+        render_gaussian_sharded_banded,
+        shard_model,
+    )
+
+    mesh = make_mesh()
+    s = mesh.shape["tile"]
+    if s < 2:
+        print("--gaussian-sharded: one rank; rendering on a 1 x 1 mesh (no "
+              "sharding win; start it under torchrun for more)",
+              file=sys.stderr)
+    shard = shard_model(_pad_to_multiple(cloud, s), mesh)
+
+    def render_fn(camera, w, h):
+        if args.gaussian_sharded == "banded":
+            rgb, alpha, over = render_gaussian_sharded_banded(
+                shard, camera, w, h, mesh, config)
+            stats = f"overflow={int(over)}"
+        else:
+            rgb, alpha = render_gaussian_sharded(shard, camera, w, h, mesh,
+                                                 config)
+            stats = f"ranks={s}"
+        bg = torch.tensor(config.background, dtype=rgb.dtype,
+                          device=rgb.device)
+        return rgb + (1.0 - alpha[..., None]) * bg, alpha, stats
+
+    return render_fn, (not dist.is_initialized()) or dist.get_rank() == 0
 
 
 def cmd_info(args):
@@ -77,6 +138,18 @@ def cmd_info(args):
 
 
 def cmd_render(args):
+    from .parallel.multihost import initialize_multihost
+
+    joined = bool(args.gaussian_sharded) and initialize_multihost(
+        device=args.device)
+    try:
+        _render(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _render(args):
     device = _device(args)
     cloud = _load(args, device)
     config = _config(args)
@@ -93,16 +166,25 @@ def cmd_render(args):
                                     center=center)
         cams = [(camera, (w, h), "default")]
 
+    if args.gaussian_sharded:
+        render_fn, writer = _gaussian_sharded_renderer(args, cloud, config)
+    else:
+        writer = True
+
+        def render_fn(camera, w, h):
+            img, aux = render(cloud, camera, w, h, config)
+            return img, aux["alpha"], f"pairs={int(aux['num_pairs'])}"
+
     os.makedirs(args.out, exist_ok=True)
     total_t = 0.0
     for i, (camera, _, name) in enumerate(cams):
         t0 = time.time()
         with torch.no_grad():
-            img, aux = render(cloud, camera, w, h, config)
+            img, alpha, stats = render_fn(camera, w, h)
             if args.post:
                 # the reference's present pass always shapes alpha
                 # (post_process_render.ts:145-166); write straight RGBA
-                rgba = post_process(img, aux["alpha"], config)
+                rgba = post_process(img, alpha, config)
                 a = torch.clamp(rgba[..., 3:4], min=1.0 / 255.0)
                 img = torch.cat(
                     [torch.clamp(rgba[..., :3] / a, 0.0, 1.0), rgba[..., 3:4]],
@@ -111,13 +193,15 @@ def cmd_render(args):
             torch.cuda.synchronize(device)
         dt = time.time() - t0
         total_t += dt
+        if not writer:
+            continue
         out = os.path.join(args.out, f"{i:04d}_{os.path.basename(str(name))}.png")
         write_png(img.cpu().numpy(), out)
         print(f"{out}  {dt*1e3:.1f} ms  ({w*h/dt/1e6:.1f} Mpix/s, "
-              f"pairs={int(aux['num_pairs'])}, device={device})",
-              file=sys.stderr)
-    print(f"rendered {len(cams)} views, avg "
-          f"{total_t/len(cams)*1e3:.1f} ms/view", file=sys.stderr)
+              f"{stats}, device={device})", file=sys.stderr)
+    if writer:
+        print(f"rendered {len(cams)} views, avg "
+              f"{total_t/len(cams)*1e3:.1f} ms/view", file=sys.stderr)
 
 
 def cmd_serve(args):
@@ -136,6 +220,15 @@ def cmd_serve(args):
 def cmd_train(args):
     import shutil
 
+    from .parallel.multihost import initialize_multihost, run_with_restarts
+
+    if args.restarts and not args.checkpoint:
+        raise SystemExit("--restarts needs --checkpoint (a restart resumes "
+                         "from the newest loop state there)")
+    if args.multihost:
+        # join the job's process group first (a no-op without torchrun's
+        # coordinator: the single-process case)
+        initialize_multihost(device=args.device)
     from .io.dataset import load_dataset
     from .models.gaussian_model import GaussianModel
     from .train.checkpoint import has_checkpoint, save_ply, save_train_state
@@ -157,16 +250,36 @@ def cmd_train(args):
         xyz = rng.uniform(lo, hi, size=(20_000, 3)).astype(np.float32)
         model = GaussianModel.from_points(xyz, sh_degree=3)
 
-    if args.fresh and args.checkpoint and has_checkpoint(args.checkpoint):
-        # without --fresh, a re-run with the same directory resumes
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if (args.fresh and args.checkpoint and rank == 0
+            and has_checkpoint(args.checkpoint)):
+        # without --fresh, a re-run with the same directory resumes; the
+        # other ranks wait for this at `train`'s barrier
         shutil.rmtree(args.checkpoint)
         print(f"--fresh: removed the loop state in {args.checkpoint}",
               file=sys.stderr)
-    state, dstate = train(
-        model, views, args.width, args.height, render_config=_config(args),
-        loop=TrainLoopConfig(iterations=args.iterations),
-        checkpoint_dir=args.checkpoint,
-        checkpoint_every=args.checkpoint_every, device=device)
+
+    def run_once(checkpoint_dir):
+        return train(
+            model, views, args.width, args.height,
+            render_config=_config(args),
+            loop=TrainLoopConfig(iterations=args.iterations),
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=args.checkpoint_every, device=device)
+
+    if args.restarts:
+        # checkpoint-restart: a transient failure resumes from the newest
+        # loop state in --checkpoint (`train` leaves `model` unchanged)
+        state, dstate = run_with_restarts(run_once, args.checkpoint,
+                                          max_restarts=args.restarts)
+    else:
+        state, dstate = run_once(args.checkpoint)
+    if dist.is_initialized():
+        # every rank trained the same replicated loop (as the JAX CLI's
+        # ranks do); rank 0 writes the outputs
+        dist.destroy_process_group()
+        if rank:
+            return
     final = compact(state.model, dstate)
     save_ply(final, args.out)
     print(f"saved {final.num_gaussians} gaussians → {args.out}",
@@ -216,6 +329,11 @@ def main(argv=None):
         sp.add_argument("--tile-size", dest="tile_size", type=int)
         sp.add_argument("--max-dup", dest="max_dup", type=int)
         sp.add_argument("--max-per-tile", dest="max_per_tile", type=int)
+        sp.add_argument("--tile-chunk", dest="tile_chunk", type=int,
+                        help="strip alignment of the sharded tile deals")
+        sp.add_argument("--dtype", choices=("float32", "bfloat16"),
+                        help="scene storage dtype (bfloat16 stores all but "
+                        "the positions in bf16; compute stays f32)")
 
     sp = sub.add_parser("info", help="scene statistics")
     sp.add_argument("--ply", required=True)
@@ -229,6 +347,13 @@ def main(argv=None):
     sp.add_argument("--cameras", help="INRIA cameras.json")
     sp.add_argument("--out", default="renders")
     sp.add_argument("--limit", type=int, default=0)
+    sp.add_argument("--gaussian-sharded", dest="gaussian_sharded",
+                    nargs="?", const="ring", choices=("ring", "banded"),
+                    help="shard the gaussians over the ranks of torchrun's "
+                    "process group (parallel.gaussian_sharded): '=ring' "
+                    "(the default) gathers every shard's projected splats, "
+                    "'=banded' sends each rank only the splats that touch "
+                    "its band of tile rows; rank 0 writes the PNGs")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("serve", help="interactive web viewer")
@@ -256,6 +381,12 @@ def main(argv=None):
     sp.add_argument("--fresh", action="store_true",
                     help="discard a loop state in --checkpoint and start "
                     "from scratch")
+    sp.add_argument("--multihost", action="store_true",
+                    help="join torchrun's process group before training "
+                    "(a no-op without a coordinator)")
+    sp.add_argument("--restarts", type=int, default=0,
+                    help="checkpoint-restart retries after a transient "
+                    "failure (needs --checkpoint)")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("eval", help="PSNR/SSIM against ground-truth images")

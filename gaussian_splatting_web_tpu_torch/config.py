@@ -12,7 +12,10 @@ The TPU grid fields (`r_tiles`, `r_tiles_bwd`, `early_exit`,
 `use_pallas`) are kept only for that one-to-one conversion; the port
 ignores them. `tile_chunk`, the TPU's lax.map chunk, is read only by the
 tile deal of `parallel/` (each shard's strip is a multiple of it), as in
-the JAX package. Modes the port does not implement yet raise
+the JAX package. `dtype` is the scene's storage dtype
+(`GaussianCloud.with_storage_dtype`, applied by `render_impl`) and
+`debug_selected` the splat highlight (`ops/rasterize.py::
+highlight_selected`). Modes the port does not implement yet raise
 `NotImplementedError` naming the ROADMAP item that will port them.
 """
 
@@ -20,6 +23,9 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+# scene storage dtypes (`GaussianCloud.with_storage_dtype`)
+STORAGE_DTYPES = ("float32", "f32", "bfloat16", "bf16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,17 +95,15 @@ class RenderConfig:
              "ROADMAP §1 item 12"),
             (self.tile_cull, "tile_cull (ellipse-rect slot test)",
              "ROADMAP §1 item 12"),
-            (self.debug_selected >= 0, "debug_selected (splat highlight)",
-             "ROADMAP §1 item 13"),
-            (self.dtype not in ("float32", "f32"),
-             f"dtype={self.dtype!r} (bf16 scene storage)",
-             "ROADMAP §1 item 13"),
         )
         for bad, what, item in unported:
             if bad:
                 raise NotImplementedError(
                     f"the PyTorch port does not implement {what} yet; "
                     f"{item} ports it")
+        if self.dtype not in STORAGE_DTYPES:
+            raise ValueError(f"unsupported storage dtype {self.dtype!r}; "
+                             f"one of {STORAGE_DTYPES}")
 
     def grid_size(self, width: int, height: int) -> Tuple[int, int]:
         """Number of tiles in (x, y)."""

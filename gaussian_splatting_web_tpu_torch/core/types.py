@@ -60,6 +60,24 @@ class GaussianCloud:
     def sh_degree(self) -> int:
         return {1: 0, 4: 1, 9: 2, 16: 3}[self.sh.shape[1]]
 
+    def with_storage_dtype(self, dtype: str) -> "GaussianCloud":
+        """The `RenderConfig.dtype` storage policy (JAX `core/types.py:
+        73-101`): 'bfloat16' stores the log-scales, quaternions, opacity
+        logits and SH in bf16 and keeps xyz in f32 (a bf16 mantissa would
+        move centres by whole pixels); projection decodes every field to
+        f32 at use. 'float32' returns the cloud itself. The casts are
+        differentiable."""
+        if dtype in ("float32", "f32"):
+            return self
+        if dtype not in ("bfloat16", "bf16"):
+            raise ValueError(f"unsupported storage dtype {dtype!r}")
+        bf = torch.bfloat16
+        return GaussianCloud(xyz=self.xyz,
+                             log_scale=self.log_scale.to(bf),
+                             quat=self.quat.to(bf),
+                             opacity_logit=self.opacity_logit.to(bf),
+                             sh=self.sh.to(bf))
+
     def bbox(self):
         """(min, max) scene bounding box (ref: src/ply.ts:276-285)."""
         return self.xyz.amin(dim=0), self.xyz.amax(dim=0)

@@ -27,7 +27,9 @@ gradient rows in sorted pair order, and `fold_pair_grads` sums them back
 onto the splats (`ops/pallas/raster.py::_fold_pair_grads`).
 
 `composite_tiles_auto` composites a list of tiles, differentiably (the
-tile-sharded paths, `parallel/`). `rasterize_tiles` goes through the
+sharded paths, `parallel/`). `bin_and_composite` passes the packed fields
+through `highlight_selected` (`config.debug_selected`) after binning;
+`composite_tiles_auto` does not. `rasterize_tiles` goes through the
 differentiable compositor
 (`ops/cuda/raster.py::composite_image`): a CUDA tensor launches kernels A
 and B, a CPU tensor takes the plain twins. `bin_and_composite`, which
@@ -74,6 +76,24 @@ def pack_splat_fields(splats: ProjectedSplats) -> torch.Tensor:
          splats.opacity, z, z, z],
         dim=-1,
     ).contiguous()
+
+
+def highlight_selected(fields: torch.Tensor,
+                       config: RenderConfig) -> torch.Tensor:
+    """`config.debug_selected`'s highlight on the packed fields (JAX
+    `ops/rasterize.py:235-248`, the reference's "selected" splat,
+    simple_render.ts:171,181-190): gaussian k composites rgb (1, 0, 1) at
+    opacity max(op, 0.9). Applied after binning, which keeps the footprint
+    and cutoff of the real opacity, as the JAX package bins; the kernels
+    see ordinary fields. Out of place; an id outside [0, N) selects
+    nothing, as in the JAX package."""
+    k = config.debug_selected
+    if not 0 <= k < fields.shape[0]:
+        return fields
+    row = fields[k]
+    lit = torch.cat([row[:5], row.new_tensor([1.0, 0.0, 1.0]),
+                     torch.clamp(row[8:9], min=0.9), row[9:]])
+    return torch.cat([fields[:k], lit[None], fields[k + 1:]])
 
 
 class _Segments(NamedTuple):
@@ -362,8 +382,8 @@ def rasterize_tiles(
     tensors, the plain twins for CPU tensors."""
     from .cuda.raster import composite_image
 
-    return composite_image(pack_splat_fields(splats), bins, width, height,
-                           config)
+    fields = highlight_selected(pack_splat_fields(splats), config)
+    return composite_image(fields, bins, width, height, config)
 
 
 def composite_tiles_auto(splats: ProjectedSplats, tile_ids: torch.Tensor,
@@ -376,16 +396,18 @@ def composite_tiles_auto(splats: ProjectedSplats, tile_ids: torch.Tensor,
     JAX package does), then `ops/cuda/raster.py::composite_tiles_subset`:
     kernel A's and B's tile-list entries for CUDA tensors, the plain twins
     for CPU tensors. `tile_ids` is int32 [L], ids in [0, gx·gy], padded with
-    the empty sentinel gx·gy (never with a repeated real id)."""
+    the empty sentinel gx·gy (never with a repeated real id). No
+    `debug_selected` highlight, as on the JAX package's TPU route
+    (`composite_tiles_subset_pallas`): the banded paths hand it compacted
+    candidates, whose row k is not gaussian k."""
     from .cuda.raster import composite_tiles_subset
 
     if config.grid_size(width, height)[0] != gx:
         raise ValueError(f"gx={gx} is not the frame's {width}x{height} grid")
     bins = bin_splats(splats, width, height, config)
     ts = config.tile_size
-    tiles = composite_tiles_subset(pack_splat_fields(splats), bins,
-                                   tile_ids.to(torch.int32), width, height,
-                                   config)
+    tiles = composite_tiles_subset(pack_splat_fields(splats), bins, tile_ids.to(torch.int32),
+                                   width, height, config)
     return tiles.reshape(-1, ts, ts, 4)
 
 
@@ -400,8 +422,9 @@ def bin_and_composite(splats: ProjectedSplats, width: int, height: int,
         from .cuda.anchor import composite_image_anchor
 
         bins = bin_splats_anchor(splats, width, height, config)
-        return composite_image_anchor(pack_splat_fields(splats), bins, width,
-                                      height, config), bins
+        fields = highlight_selected(pack_splat_fields(splats), config)
+        return composite_image_anchor(fields, bins, width, height,
+                                      config), bins
     bins = bin_splats(splats, width, height, config)
     return rasterize_tiles(splats, bins, width, height, config), bins
 
@@ -415,7 +438,11 @@ def render_impl(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full render on the cloud's device: project → bin → composite
     (+ background), differentiable in the cloud's parameters. Returns
-    (image [H, W, 3], aux) with aux holding alpha and the binning counts."""
+    (image [H, W, 3], aux) with aux holding alpha and the binning counts.
+    A `config.dtype` of bfloat16 stores the cloud by
+    `GaussianCloud.with_storage_dtype` first (a no-op on a cloud already
+    stored so), as JAX `ops/rasterize.py:466-472` does."""
+    cloud = cloud.with_storage_dtype(config.dtype)
     camera = camera.to(cloud.device)
     splats = project_gaussians(cloud, camera, width, height, config)
     out, bins = bin_and_composite(splats, width, height, config)

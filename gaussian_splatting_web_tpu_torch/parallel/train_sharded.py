@@ -39,9 +39,51 @@ from .mesh import AXES, Mesh
 from .render_sharded import dealt_to_image, gather_tiles, shard_tile_ids
 
 
-def _all_reduce_sum(flat: torch.Tensor, group) -> None:
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group is not None:
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def local_batch(cameras: Sequence[CameraParams], targets: torch.Tensor,
+                mesh: Mesh):
+    """This data rank's contiguous block of the camera batch and its targets
+    (what `P('data')` gives a JAX device); B must split over 'data'."""
+    n_data = mesh.shape[AXES.data]
+    if len(cameras) % n_data:
+        raise ValueError(f"a batch of {len(cameras)} cameras does not split "
+                         f"over {n_data} data ranks")
+    b = len(cameras) // n_data
+    lo = mesh.data_index * b
+    return cameras[lo:lo + b], targets[lo:lo + b]
+
+
+def reduce_and_apply(state: TrainState, loss: torch.Tensor, mesh: Mesh,
+                     tile_sum: bool) -> torch.Tensor:
+    """The end of a sharded step on every rank: the parameter gradients in
+    .grad are summed over 'tile' (when `tile_sum`; a Gaussian-sharded
+    step's shard gradients already hold every tile's part) and averaged
+    over 'data', one flat all-reduce each; Adam takes one step. Returns
+    JAX's reported loss: the mean over the data ranks of the sum over the
+    tile ranks of loss / n_tile."""
+    n_tile = mesh.shape[AXES.tile]
+    n_data = mesh.shape[AXES.data]
+    params = list(state.model.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    if tile_sum:
+        _all_reduce_sum(flat, mesh.tile_group)
+    _all_reduce_sum(flat, mesh.data_group)
+    flat /= n_data
+    for p, g in zip(params, flat.split([q.numel() for q in params])):
+        p.grad = g.view_as(p).clone()
+    apply_gradients(state)
+
+    reported = (loss.detach() / n_tile).reshape(1)
+    _all_reduce_sum(reported, mesh.tile_group)
+    _all_reduce_sum(reported, mesh.data_group)
+    return reported[0] / n_data
 
 
 def make_sharded_train_step(
@@ -62,7 +104,6 @@ def make_sharded_train_step(
     full_f32()
     gx, gy = config.grid_size(width, height)
     n_tile = mesh.shape[AXES.tile]
-    n_data = mesh.shape[AXES.data]
     ts = config.tile_size
     mine = shard_tile_ids(gx * gy, n_tile, config.tile_chunk,
                           mesh.tile_index)
@@ -80,37 +121,17 @@ def make_sharded_train_step(
 
     def step(state: TrainState, cameras: Sequence[CameraParams],
              targets: torch.Tensor):
-        b_all = len(cameras)
-        if b_all % n_data:
-            raise ValueError(f"a batch of {b_all} cameras does not split over "
-                             f"{n_data} data ranks")
-        b = b_all // n_data
-        lo = mesh.data_index * b
+        cameras, targets = local_batch(cameras, targets, mesh)
         dev = state.model.device
-        params = list(state.model.parameters())
         state.optimizer.zero_grad(set_to_none=True)
         cloud = state.model.to_cloud(active_sh_degree)
         total = 0.0
-        for camera, target in zip(cameras[lo:lo + b], targets[lo:lo + b]):
+        for camera, target in zip(cameras, targets):
             img = image(cloud, camera.to(dev))
             total = total + photometric_loss(img, target.to(dev),
                                              lambda_dssim)
-        loss = total / b
+        loss = total / len(cameras)
         loss.backward()
-
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        _all_reduce_sum(flat, mesh.tile_group)
-        _all_reduce_sum(flat, mesh.data_group)
-        flat /= n_data
-        for p, g in zip(params, flat.split([q.numel() for q in params])):
-            p.grad = g.view_as(p).clone()
-        apply_gradients(state)
-
-        reported = (loss.detach() / n_tile).reshape(1)
-        _all_reduce_sum(reported, mesh.tile_group)
-        _all_reduce_sum(reported, mesh.data_group)
-        return state, reported[0] / n_data
+        return state, reduce_and_apply(state, loss, mesh, tile_sum=True)
 
     return step

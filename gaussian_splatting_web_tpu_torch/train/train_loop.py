@@ -26,6 +26,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import RenderConfig
 from ..core.types import CameraParams
@@ -161,7 +162,10 @@ def train(
     With `checkpoint_dir`: resumes from the stored loop state when the
     directory holds one, and saves the loop state (model, optimizer,
     DensifyState, iteration) every `checkpoint_every` iterations when that
-    is > 0. The view-sampling RNG restarts from `loop.seed` on resume."""
+    is > 0. The view-sampling RNG restarts from `loop.seed` on resume.
+    In a process group every rank trains the same replicated loop: rank 0
+    alone writes the loop state, and every rank waits at a barrier before
+    it looks for one to resume from."""
     dev = resolve_device(device)
     extent = scene_extent(views)
     capacity = int(model.num_gaussians * loop.capacity_factor)
@@ -180,6 +184,7 @@ def train(
     max_sh = params.max_sh_degree
 
     it = 0
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     if checkpoint_dir:
         from .checkpoint import (
             has_checkpoint,
@@ -187,6 +192,8 @@ def train(
             save_loop_state,
         )
 
+        if dist.is_initialized():
+            dist.barrier()   # rank 0's writes (and --fresh) come first
         if has_checkpoint(checkpoint_dir):
             state, dstate, it = restore_loop_state(checkpoint_dir, state,
                                                    dstate)
@@ -222,7 +229,8 @@ def train(
             reset_opacity(state.model, dstate.alive)
             reset_opt_opacity(state.optimizer, state.model.opacity_logit)
 
-        if checkpoint_dir and checkpoint_every and it % checkpoint_every == 0:
+        if (writer and checkpoint_dir and checkpoint_every
+                and it % checkpoint_every == 0):
             save_loop_state(state, dstate, it, checkpoint_dir)
 
         if it % loop.log_every == 0:

@@ -52,11 +52,24 @@ def test_config_defaults_equal_except_exact_mode():
 
 @pytest.mark.parametrize("field,value", [
     ("depth_bits", 19), ("tier_split", 2), ("pack_fields", True),
-    ("tile_cull", True), ("debug_selected", 0), ("dtype", "bfloat16"),
+    ("tile_cull", True),
 ])
 def test_config_rejects_unported_modes(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RenderConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("debug_selected", 0), ("dtype", "bfloat16"), ("dtype", "bf16"),
+])
+def test_config_accepts_item_13_modes(field, value):
+    """The splat highlight and bf16 scene storage are ported (ROADMAP §1
+    item 13) and convert to the JAX config; an unknown dtype is refused."""
+    port = RenderConfig(**{field: value})
+    assert JaxConfig(**dataclasses.asdict(port)) == JaxConfig(
+        **EXACT_MODE, **{field: value})
+    with pytest.raises(ValueError, match="storage dtype"):
+        RenderConfig(dtype="float16")
 
 
 @pytest.mark.parametrize("max_per_tile", [256, 300, 1024])
@@ -125,6 +138,10 @@ def test_port_imports_no_jax():
         "gaussian_splatting_web_tpu_torch.ops.rasterize",
         "gaussian_splatting_web_tpu_torch.ops.sh",
         "gaussian_splatting_web_tpu_torch.ops.sort",
+        "gaussian_splatting_web_tpu_torch.parallel",
+        "gaussian_splatting_web_tpu_torch.parallel.dryrun",
+        "gaussian_splatting_web_tpu_torch.parallel.gaussian_sharded",
+        "gaussian_splatting_web_tpu_torch.parallel.multihost",
         "gaussian_splatting_web_tpu_torch.train.checkpoint",
         "gaussian_splatting_web_tpu_torch.train.densify",
         "gaussian_splatting_web_tpu_torch.train.loss",

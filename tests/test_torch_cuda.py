@@ -541,3 +541,48 @@ def test_anchor_kernels_schedule_tiles_heavy_first(device):
         assert sorted(got.tolist()) == list(range(gx * gy))
         assert torch.equal(weight[got.long()], weight[want.long()])
     assert int(merge.k_used.max()) == kc
+
+
+@pytest.mark.parametrize("banded,stream", [(False, "a2a"), (True, "a2a"),
+                                           (True, "ring")])
+def test_gaussian_sharded_step_is_deterministic(device, banded, stream):
+    """A Gaussian-sharded step on the card (1 × 1 mesh, no process group)
+    through E-A and E-B: two steps from the same state give the same
+    gradient bits, and they equal the unsharded step's (the a2a way back
+    copies each row gradient to its unique slot and sums the slot axis; no
+    atomics)."""
+    from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
+        PARAMS,
+        GaussianModel,
+    )
+    from gaussian_splatting_web_tpu_torch.parallel import (
+        make_gaussian_sharded_train_step,
+        make_mesh,
+    )
+    from gaussian_splatting_web_tpu_torch.train.loss import photometric_loss
+    from gaussian_splatting_web_tpu_torch.train.trainer import TrainState
+
+    w, h = 64, 128
+    cloud = _scene(4, n=2000).to(device)
+    cams = [cam.default_camera(w, h, eye=(0, y, -6), center=(0, 0, 0)
+                               ).to(device) for y in (0.0, 1.0)]
+    with torch.no_grad():
+        targets = torch.stack([0.8 * render(cloud, c, w, h, CFG)[0]
+                               for c in cams])
+    ref = GaussianModel.from_cloud(cloud)
+    (sum(photometric_loss(render(ref.to_cloud(), c, w, h, CFG)[0], t)
+         for c, t in zip(cams, targets)) / 2).backward()
+    step = make_gaussian_sharded_train_step(w, h, make_mesh(), CFG,
+                                            banded=banded, stream=stream)
+    grads = []
+    for _ in range(2):
+        model = GaussianModel.from_cloud(cloud)
+        raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
+        step(TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3)),
+             cams, targets)
+        assert (raster_cuda.launches_tiles,
+                raster_cuda.launches_tiles_bwd) == (2, 2)
+        grads.append([getattr(model, f).grad for f in PARAMS])
+    for f, a, b in zip(PARAMS, *grads):
+        assert torch.equal(a, b), f
+        assert torch.equal(a, getattr(ref, f).grad), f
