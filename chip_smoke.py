@@ -113,6 +113,25 @@ Gaussian sharding (`parallel/gaussian_sharded.py`, E-A and E-B through
              frame (mean |diff| < 5e-3, p99 < 0.05, JAX
              tests/test_rasterize.py:155-176)
 
+The packed and tiered modes, the JAX package's default render
+configuration (CFG_P: depth_bits=19, tier_split=2, pack_fields,
+pack_mean16, pack_grads; CFG_CULL: CFG_P with tile_cull; CFG_AP: the
+packed anchor binning):
+
+ 20 packed   the bins of all three at 1080p against the JAX package's CPU
+             figures (num_pairs, overflow; slots and pair cap, the largest
+             tile); phases 2, 3 and 15 rerun under CFG_P (A, B, E-A and E-B
+             with the mean16 flag, the tiered pack_grads fold, the cull
+             mirror's 0 culled passing steps) and phases 10 and 11 under
+             CFG_AP (C and D on packed anchor bins, the crowded and column
+             overrun scenes included); `render` and a fwd+bwd step in each
+             mode (one A or C per frame, A+B or C+D per step), each frame
+             against phase 4's exact frame (mean |diff| < 5e-3, p99 <
+             0.05); `train()` for 10 iterations under CFG_P; the packed
+             keys' stable sort timed as int64 and as int32; a line
+             "[20 packed] against the exact mode of this run" with the
+             per-stage, step, fold and kernel times beside the exact mode's
+
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
 residual log-transmittance agrees to 1e-4. Gradient rule
@@ -209,7 +228,11 @@ from gaussian_splatting_web_tpu_torch.ops.rasterize import (
     rasterize_tiles,
     render,
 )
-from gaussian_splatting_web_tpu_torch.ops.sort import bin_splats
+from gaussian_splatting_web_tpu_torch.ops.sort import (
+    bin_splats,
+    float_to_sortable_uint,
+    sort_key_bits,
+)
 from gaussian_splatting_web_tpu_torch.parallel import (
     banded_candidates,
     banded_candidates_a2a,
@@ -254,6 +277,20 @@ CPU_PAIRS, CPU_OVERFLOW = 2_150_328, 13
 # the same for the anchor binning: live pairs, overflow (dup-tier tiles past
 # max_dup) and (tile, range) covers the range overruns
 ANCHOR_PAIRS, ANCHOR_OVERFLOW, ANCHOR_TRUNCATED = 2_150_377, 248, 264
+# the packed and tiered modes (phase 20): the JAX package's default values
+# of the item-12 fields, that with the exact ellipse-tile cull, and the
+# packed anchor binning
+CFG_P = RenderConfig(depth_bits=19, tier_split=2, pack_fields=True,
+                     pack_mean16=True, pack_grads=True)
+CFG_CULL = CFG_P.replace(tile_cull=True)
+CFG_AP = RenderConfig(binning="anchor", pack_fields=True, pack_grads=True)
+# the JAX package's CPU run of the same projection and binning in those
+# modes (PERF.md §4): live pairs and overflow; the tiered slot grid (2·N +
+# 4·0.3N + 16·N/64) and the largest tile's pair count
+PACKED_PAIRS, PACKED_OVERFLOW, PACKED_MAX_TILE = 2_150_328, 13, 1_724
+CULL_PAIRS, CULL_OVERFLOW, CULL_MAX_TILE = 1_759_864, 13, 1_409
+PACKED_SLOTS, PACKED_PAIR_CAP = 3_450_000, 3_000_000
+ANCHOR_PACKED_PAIRS, ANCHOR_PACKED_OVERFLOW = 2_150_377, 248
 LOG_T_TOL = 1e-4          # the image rule and GRAD_EXTRA: bench_lib
 TILE_SHARDS, TILE_CHUNK = 4, 32   # phase 15's tile deal (the default chunk)
 KERNELS = {
@@ -374,7 +411,7 @@ def bench_camera(w, h, dev):
 def binned(cloud, camera, w, h, cfg):
     splats = project_gaussians(cloud, camera, w, h, cfg)
     bins = bin_splats(splats, w, h, cfg)
-    return pack_splat_fields(splats), bins
+    return pack_splat_fields(splats, cfg), bins
 
 
 def small_scenes(dev):
@@ -515,7 +552,7 @@ def schedule_check(order, weight, cap, what):
           f"{what}: the tile schedule is not heavy first")
 
 
-def phase_kernel(dev, cloud, cfg):
+def phase_kernel(dev, cloud, cfg, label="2 kernel"):
     findings = {}
     for what, scene, w, h, z in small_scenes(dev):
         camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
@@ -551,7 +588,7 @@ def phase_kernel(dev, cloud, cfg):
     nbytes = (fields.numel() * 4 + bins.sorted_gidx.numel() * 4 + t * 8
               + H * W * 6 * 4)
     bound_ms, bound_by, step_ms = bound("raster_fwd", steps["A"], nbytes)
-    print(f"[2 kernel] kernel A vs plain twin: "
+    print(f"[{label}] kernel A vs plain twin: "
           + "; ".join(f"{k}: max_abs_err {v['max_abs_err']:.3e}, "
                       f">{ATOL} on {v['bad_frac']:.2e}, "
                       f"log-T err {v['log_t_err']:.2e}, "
@@ -581,8 +618,8 @@ def backward_vs_plain(fields, bins, fwd, w, h, cfg, what):
     want = composite_backward_plain(fields, bins, w, h, cfg, fwd, d_rgb,
                                     d_alpha)
     n = fields.shape[0]
-    g_got = fold_pair_grads(got, bins, n)
-    g_want = fold_pair_grads(want, bins, n)
+    g_got = fold_pair_grads(got, bins, n, cfg)
+    g_want = fold_pair_grads(want, bins, n, cfg)
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite B output")
     check(g_want.abs().max().item() > 0, f"{what}: zero gradients")
     stats = grad_parity(g_got.T, g_want.T)
@@ -592,7 +629,7 @@ def backward_vs_plain(fields, bins, fwd, w, h, cfg, what):
     return stats, (d_rgb, d_alpha, got)
 
 
-def phase_backward(dev, cfg, full):
+def phase_backward(dev, cfg, full, label="3 bwd"):
     findings = {}
     for what, scene, w, h, z in small_scenes(dev):
         camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
@@ -614,12 +651,12 @@ def phase_backward(dev, cfg, full):
     plain_ms = median_ms(lambda: composite_backward_plain(
         fields, bins, W, H, cfg, fwd, d_rgb, d_alpha), 7, warmup=1)
     n = fields.shape[0]
-    fold_ms = median_ms(lambda: fold_pair_grads(dpairs, bins, n), 7)
+    fold_ms = median_ms(lambda: fold_pair_grads(dpairs, bins, n, cfg), 7)
     t = cfg.num_tiles(W, H)
     nbytes = (fields.numel() * 4 + bins.sorted_gidx.numel() * 4 + t * 8
               + H * W * 6 * 4 + dpairs.numel() * 4)
     bound_ms, bound_by, step_ms = bound("raster_bwd", steps["B"], nbytes)
-    print("[3 bwd] kernel B vs plain twin after the fold, bitwise "
+    print(f"[{label}] kernel B vs plain twin after the fold, bitwise "
           "repeatable on each scene: "
           + "; ".join(f"{k}: p99 {v['p99']:.2e}, max {v['max']:.2e}, "
                       f">1% {v['nbig']}/{v['n']}, "
@@ -702,8 +739,8 @@ def tiles_vs_full(fields, bins, w, h, cfg, what, shards=TILE_SHARDS,
         found["bad_frac"] = max(found["bad_frac"], bad)
         want = rasterize.composite_tiles_backward_plain(
             fields, bins, ids, w, h, cfg, out.last_idx, d_list)
-        g_got = fold_pair_grads(part, bins, n)
-        g_want = fold_pair_grads(want, bins, n)
+        g_got = fold_pair_grads(part, bins, n, cfg)
+        g_want = fold_pair_grads(want, bins, n, cfg)
         stats = grad_parity(g_got.T, g_want.T)
         check(grad_parity_ok(stats, GRAD_EXTRA),
               f"{what}: E-B vs its twin outside the gradient rule: {stats}")
@@ -721,7 +758,7 @@ def tiles_vs_full(fields, bins, w, h, cfg, what, shards=TILE_SHARDS,
     return found, first
 
 
-def phase_tiles(dev, cfg, full):
+def phase_tiles(dev, cfg, full, label="15 tiles"):
     """Phase 15: E-A and E-B over 4 tile shards at 1080p and on the small
     scenes; both timed over one shard's list beside full-frame A and B."""
     findings = {}
@@ -786,7 +823,7 @@ def phase_tiles(dev, cfg, full):
             "work": work_line(wk, nbytes[key], bound_ms, bound_by, step_ms,
                               "past the cutoff" if key == "E-A"
                               else "contributing")}
-    print(f"[15 tiles] E-A and E-B over {TILE_SHARDS} tile shards "
+    print(f"[{label}] E-A and E-B over {TILE_SHARDS} tile shards "
           f"(`_padded_tile_ids(T, {TILE_SHARDS}, {TILE_CHUNK})`, padding → "
           "the empty sentinel), run in turn: stitched E-A equal to A bit "
           "for bit (image and residual), E-B rows summed equal to B's bit "
@@ -1031,6 +1068,138 @@ def phase_config(dev, cloud, cfg, frame):
           "A=1")
 
 
+def phase_packed(dev, cloud, frame, exact):
+    """Phase 20: the packed and tiered modes on the 1M scene at 1080p.
+    The bins of CFG_P, CFG_CULL and CFG_AP against the JAX package's CPU
+    figures; kernels A, B, E-A and E-B with the mean16 flag (and the tiered
+    pack_grads fold) and C and D on packed anchor bins against their twins
+    on the small scenes and at 1080p (phases 2, 3, 15, 10, 11 rerun, 0
+    culled passing steps); `render` and a fwd+bwd step in each mode with
+    their launches, the frame against phase 4's exact-mode frame within
+    phase 19's bf16 bounds; per-stage, step, fold and kernel times beside
+    the exact mode's from `exact` (phases 2-5, 12, 13 of this run)."""
+    camera = bench_camera(W, H, dev)
+    counts = {}
+    with torch.no_grad():
+        splats = project_gaussians(cloud, camera, W, H, CFG_P)
+        for name, cfg, want in (
+                ("packed", CFG_P, (PACKED_PAIRS, PACKED_OVERFLOW,
+                                   PACKED_MAX_TILE)),
+                ("packed+cull", CFG_CULL, (CULL_PAIRS, CULL_OVERFLOW,
+                                           CULL_MAX_TILE))):
+            bins = bin_splats(splats, W, H, cfg)
+            got = (int(bins.num_pairs), int(bins.overflow),
+                   int(bins.tile_count.max()))
+            slots = bins.sorted_slot.shape[0]
+            cap = min(slots, max(int(N_SCENE * cfg.gather_cap_factor),
+                                 cfg.gather_cap_floor))
+            check(slots == PACKED_SLOTS and cap == PACKED_PAIR_CAP,
+                  f"{name}: {slots} slots, pair cap {cap}")
+            check(abs(got[0] - want[0]) <= 1e-3 * want[0]
+                  and abs(got[1] - want[1]) <= 5
+                  and abs(got[2] - want[2]) <= 2,
+                  f"{name}: (pairs, overflow, max tile) {got} vs CPU {want}")
+            counts[name] = got + (slots, cap, slots * 36)
+            if name == "packed":
+                # the sort alone: the live pairs' packed keys (in a random
+                # order) as the port sorts them, int64, against the same
+                # keys offset into int32, which is all the packed key needs
+                bits = sort_key_bits(cfg.num_tiles(W, H), cfg)
+                tile = torch.repeat_interleave(
+                    torch.arange(cfg.num_tiles(W, H), device=dev),
+                    bins.tile_count.long())
+                dkey = float_to_sortable_uint(
+                    splats.depth[bins.sorted_gidx.long()]) >> (32 - bits)
+                gen = torch.Generator(device=dev).manual_seed(0)
+                key64 = ((tile << bits) | dkey)[torch.randperm(
+                    tile.shape[0], generator=gen, device=dev)]
+                key32 = (key64 - (1 << 31)).to(torch.int32)
+                sort_ms = (
+                    median_ms(lambda: torch.sort(key64, stable=True), 7),
+                    median_ms(lambda: torch.sort(key32, stable=True), 7))
+        abins = anchor.bin_splats_anchor(splats, W, H, CFG_AP)
+        got = (int(abins.num_pairs), int(abins.overflow))
+        check(abs(got[0] - ANCHOR_PACKED_PAIRS) <= 1e-3 * ANCHOR_PACKED_PAIRS
+              and abs(got[1] - ANCHOR_PACKED_OVERFLOW) <= 5,
+              f"packed anchor: (pairs, overflow) {got} vs CPU "
+              f"{(ANCHOR_PACKED_PAIRS, ANCHOR_PACKED_OVERFLOW)}")
+        check(int(abins.sorted_depth.max()) <= 0xFFFF, "packed anchor: the "
+              "sorted depths are not d16 keys")
+        counts["packed anchor"] = got
+        del splats, bins, abins
+        print("[20 packed] bins at 1080p vs the JAX package's CPU run: "
+              + "; ".join(
+                  f"{k}: num_pairs {v[0]}, overflow {v[1]}"
+                  + (f", max tile {v[2]}, slots {v[3]}, pair cap {v[4]}, "
+                     f"fold buffer {v[5]} bytes" if len(v) > 2 else "")
+                  for k, v in counts.items())
+              + f" (CPU: {PACKED_PAIRS}/{PACKED_OVERFLOW}, {CULL_PAIRS}/"
+              f"{CULL_OVERFLOW}, {ANCHOR_PACKED_PAIRS}/"
+              f"{ANCHOR_PACKED_OVERFLOW}; exact-mode slots {N_SCENE * 16}, "
+              f"fold buffer {N_SCENE * 16 * 36} bytes); the {PACKED_PAIRS} "
+              f"packed keys' stable sort: int64 {sort_ms[0]:.3f} ms, the "
+              f"same keys as int32 {sort_ms[1]:.3f} ms")
+
+        fwd, full = phase_kernel(dev, cloud, CFG_P, label="20 packed A")
+        bwd = phase_backward(dev, CFG_P, full, label="20 packed B")
+        tiles = phase_tiles(dev, CFG_P, full, label="20 packed E")
+        del full
+        afwd, afull = phase_anchor_kernel(dev, cloud, CFG_AP,
+                                          label="20 packed C")
+        abwd = phase_anchor_backward(dev, CFG_AP, afull, label="20 packed D")
+        del afull
+        modes = {}
+        for name, cfg, expect in (
+                ("packed", CFG_P, (PACKED_PAIRS, PACKED_OVERFLOW)),
+                ("packed+cull", CFG_CULL, (CULL_PAIRS, CULL_OVERFLOW)),
+                ("packed anchor", CFG_AP, (ANCHOR_PACKED_PAIRS,
+                                           ANCHOR_PACKED_OVERFLOW))):
+            img, med = phase_render(dev, cloud, cfg, label=f"20 {name}",
+                                    expect=expect)
+            diff = (img - frame).abs()
+            mean = float(diff.mean())
+            p99 = float(torch.quantile(diff.reshape(-1), 0.99))
+            check(mean < 5e-3 and p99 < 0.05, f"{name}: frame off the exact "
+                  f"frame: mean {mean:.2e}, p99 {p99:.2e}")
+            modes[name] = {"med": med, "mean": mean, "p99": p99}
+    for name, cfg in (("packed", CFG_P), ("packed+cull", CFG_CULL),
+                      ("packed anchor", CFG_AP)):
+        modes[name]["step"] = phase_step(
+            dev, cloud, cfg, label=f"20 {name}",
+            kernels="CD" if cfg.binning == "anchor" else "AB")
+
+    def stages(med):
+        return "/".join(f"{med[k]:.2f}" for k in ("projection", "binning",
+                                                  "composite", "frame"))
+
+    print("[20 packed] against the exact mode of this run: "
+          + "; ".join(
+              f"{k}: frame vs exact mean |diff| {v['mean']:.2e}, p99 "
+              f"{v['p99']:.2e} (bound 5e-3, 0.05); projection/binning/"
+              f"composite/frame medians {stages(v['med'])} ms (exact "
+              f"{stages(exact['anchor' if 'anchor' in k else 'dup'])}); "
+              f"fwd+bwd step {v['step']:.2f} ms (exact "
+              f"{exact['step_a' if 'anchor' in k else 'step']:.2f})"
+              for k, v in modes.items())
+          + f"; kernel only with mean16: A {fwd['ms']:.3f} ms (exact "
+          f"{exact['A']['ms']:.3f}), B {bwd['ms']:.3f} (exact "
+          f"{exact['B']['ms']:.3f}), E-A "
+          f"{tiles['raster_fwd_tiles']['ms']:.3f} (exact "
+          f"{exact['E']['raster_fwd_tiles']['ms']:.3f}), E-B "
+          f"{tiles['raster_bwd_tiles']['ms']:.3f} (exact "
+          f"{exact['E']['raster_bwd_tiles']['ms']:.3f}); on packed anchor "
+          f"bins C {afwd['ms']:.3f} (exact {exact['C']['ms']:.3f}), D "
+          f"{abwd['ms']:.3f} (exact {exact['D']['ms']:.3f}); fold tiered "
+          f"with pack_grads {bwd['fold_ms']:.3f} ms over "
+          f"{counts['packed'][5]} bytes (exact {exact['B']['fold_ms']:.3f} "
+          f"ms over {N_SCENE * 16 * 36}), packed anchor fold "
+          f"{abwd['fold_ms']:.3f} ms (exact {exact['D']['fold_ms']:.3f}); "
+          f"bounds A {fwd['bound_ms']:.4f}, B {bwd['bound_ms']:.4f}, C "
+          f"{afwd['bound_ms']:.4f}, D {abwd['bound_ms']:.4f} ms; plain A "
+          f"{fwd['plain_ms']:.3f}, B {bwd['plain_ms']:.3f}, C "
+          f"{afwd['plain_ms']:.3f}, D {abwd['plain_ms']:.3f} ms")
+
+
 def phase_eval(capture):
     """Phase 17: `cli eval --device cuda` on phase 8's views and trained
     PLY prints its JSON line with a finite PSNR."""
@@ -1064,8 +1233,8 @@ def crowded_scenes(dev):
 
 def anchor_binned(cloud, camera, w, h, cfg):
     splats = project_gaussians(cloud, camera, w, h, cfg)
-    return pack_splat_fields(splats), anchor.bin_splats_anchor(splats, w, h,
-                                                                cfg)
+    return pack_splat_fields(splats, cfg), anchor.bin_splats_anchor(
+        splats, w, h, cfg)
 
 
 def anchor_vs_plain(fields, abins, w, h, cfg, what):
@@ -1084,7 +1253,7 @@ def anchor_vs_plain(fields, abins, w, h, cfg, what):
     return found, got, merge
 
 
-def phase_anchor_kernel(dev, cloud, cfg):
+def phase_anchor_kernel(dev, cloud, cfg, label="10 anchor"):
     findings = {}
     half = anchor.c_max(cfg) * anchor.KCL
     kc = anchor.k_cap(cfg)
@@ -1128,7 +1297,7 @@ def phase_anchor_kernel(dev, cloud, cfg):
     nbytes = (fields.numel() * 4 + (t + 1) * 4 + union + touched * 4
               + kept * 4 + H * W * 6 * 4 + t * kc * 5 + t * 4)
     bound_ms, bound_by, step_ms = bound("anchor_fwd", steps["A"], nbytes)
-    print(f"[10 anchor] kernel C vs plain twin: "
+    print(f"[{label}] kernel C vs plain twin: "
           + "; ".join(f"{k}: max_abs_err {v['max_abs_err']:.3e}, "
                       f">{ATOL} on {v['bad_frac']:.2e}, "
                       f"log-T err {v['log_t_err']:.2e}, "
@@ -1160,8 +1329,8 @@ def anchor_backward_vs_plain(fields, abins, fwd, merge, w, h, cfg, what):
     want = anchor.composite_anchor_backward_plain(fields, abins, w, h, cfg,
                                                   fwd, d_rgb, d_alpha)
     n = fields.shape[0]
-    g_got = anchor.fold_anchor_grads(got, abins, n)
-    g_want = anchor.fold_anchor_grads(want, abins, n)
+    g_got = anchor.fold_anchor_grads(got, abins, n, cfg)
+    g_want = anchor.fold_anchor_grads(want, abins, n, cfg)
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite D output")
     check(g_want.abs().max().item() > 0, f"{what}: zero gradients")
     stats = grad_parity(g_got.T, g_want.T)
@@ -1171,7 +1340,7 @@ def anchor_backward_vs_plain(fields, abins, fwd, merge, w, h, cfg, what):
     return stats, (d_rgb, d_alpha, got)
 
 
-def phase_anchor_backward(dev, cfg, full):
+def phase_anchor_backward(dev, cfg, full, label="11 anchor"):
     findings = {}
     for what, scene, w, h, z in small_scenes(dev) + crowded_scenes(dev):
         camera = default_camera(w, h, eye=(0, 0, z), center=(0, 0, 0)).to(dev)
@@ -1193,13 +1362,14 @@ def phase_anchor_backward(dev, cfg, full):
     plain_ms = median_ms(lambda: anchor.composite_anchor_backward_plain(
         fields, abins, W, H, cfg, fwd, d_rgb, d_alpha), 7, warmup=1)
     n = fields.shape[0]
-    fold_ms = median_ms(lambda: anchor.fold_anchor_grads(dpairs, abins, n), 7)
+    fold_ms = median_ms(
+        lambda: anchor.fold_anchor_grads(dpairs, abins, n, cfg), 7)
     t = cfg.num_tiles(W, H)
     kept = int(merge.k_used.sum())
     nbytes = (fields.numel() * 4 + kept * (4 + 4 + 1) + t * 4
               + H * W * 6 * 4 + kept * 36)
     bound_ms, bound_by, step_ms = bound("anchor_bwd", steps["B"], nbytes)
-    print("[11 anchor] kernel D vs plain twin after the fold, bitwise "
+    print(f"[{label}] kernel D vs plain twin after the fold, bitwise "
           "repeatable on each scene: "
           + "; ".join(f"{k}: p99 {v['p99']:.2e}, max {v['max']:.2e}, "
                       f">1% {v['nbig']}/{v['n']}, "
@@ -1216,13 +1386,16 @@ def phase_anchor_backward(dev, cfg, full):
             "fold_ms": fold_ms}
 
 
-def phase_render(dev, cloud, cfg, frames=5, ref=None):
+def phase_render(dev, cloud, cfg, frames=5, ref=None, label=None,
+                 expect=None):
     """`render` for a few frames with cfg's binning; `ref` is the dup
-    path's frame to hold an anchor frame against (printed only)."""
+    path's frame to hold an anchor frame against (printed only); `expect`
+    the JAX package's (pairs, overflow) for cfg → (frame, stage medians)."""
     is_anchor = cfg.binning == "anchor"
-    label, kernel = ("12 anchor", "C") if is_anchor else ("4 render", "A")
-    pairs, over = ((ANCHOR_PAIRS, ANCHOR_OVERFLOW) if is_anchor
-                   else (CPU_PAIRS, CPU_OVERFLOW))
+    kernel = "C" if is_anchor else "A"
+    label = label or ("12 anchor" if is_anchor else "4 render")
+    pairs, over = expect or ((ANCHOR_PAIRS, ANCHOR_OVERFLOW) if is_anchor
+                             else (CPU_PAIRS, CPU_OVERFLOW))
     camera = bench_camera(W, H, dev)
     stages = {"projection": [], "binning": [], "composite": [], "frame": []}
     with torch.no_grad():
@@ -1240,7 +1413,7 @@ def phase_render(dev, cloud, cfg, frames=5, ref=None):
             t2 = time.perf_counter()
             if is_anchor:
                 anchor_cuda.composite_image_anchor(
-                    pack_splat_fields(splats), bins, W, H, cfg)
+                    pack_splat_fields(splats, cfg), bins, W, H, cfg)
             else:
                 rasterize_tiles(splats, bins, W, H, cfg)
             torch.cuda.synchronize()
@@ -1271,7 +1444,7 @@ def phase_render(dev, cloud, cfg, frames=5, ref=None):
           f"num_pairs {num_pairs} vs CPU {pairs}")
     check(abs(overflow - over) <= 5, f"overflow {overflow} vs CPU {over}")
     extra = ""
-    if is_anchor:
+    if is_anchor and ref is not None:
         gx, gy = cfg.grid_size(W, H)
         rng = anchor.tile_ranges(bins, gx, gy, cfg)
         half = anchor.c_max(cfg) * anchor.KCL
@@ -1290,7 +1463,7 @@ def phase_render(dev, cloud, cfg, frames=5, ref=None):
           f"(CPU {over}), visible={int(aux['num_visible'])}, mean rgb "
           f"{mean:.4f}, alpha>0.01 on {covered:.3f}{extra}; medians ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
-    return img
+    return img, med
 
 
 def phase_step(dev, cloud, cfg, steps=7, label="5 step", kernels="AB"):
@@ -1537,13 +1710,13 @@ def main():
         bwd = phase_backward(dev, cfg, full)
         tiles = phase_tiles(dev, cfg, full)
         del full
-        frame = phase_render(dev, cloud, cfg)
+        frame, med = phase_render(dev, cloud, cfg)
         afwd, afull = phase_anchor_kernel(dev, cloud, cfg_a)
         abwd = phase_anchor_backward(dev, cfg_a, afull)
         del afull
-        phase_render(dev, cloud, cfg_a, ref=frame)
-    phase_step(dev, cloud, cfg)
-    phase_step(dev, cloud, cfg_a, label="13 anchor", kernels="CD")
+        _, med_a = phase_render(dev, cloud, cfg_a, ref=frame)
+    step_ms = phase_step(dev, cloud, cfg)
+    step_a = phase_step(dev, cloud, cfg_a, label="13 anchor", kernels="CD")
     with torch.no_grad():
         phase_serve(dev, cloud, cfg)
         phase_serve(dev, cloud, cfg_a, n_events=2, label="13 anchor",
@@ -1554,12 +1727,16 @@ def main():
         phase_gaussian_sharded(dev, cloud, cfg, frame, mesh, ref)
     del ref
     phase_config(dev, cloud, cfg, frame)
+    phase_packed(dev, cloud, frame, {
+        "dup": med, "anchor": med_a, "step": step_ms, "step_a": step_a,
+        "A": fwd, "B": bwd, "C": afwd, "D": abwd, "E": tiles})
     del cloud
     phase_cli_render()
     with tempfile.TemporaryDirectory() as capture_dir:
         trained, capture = phase_train(dev, cfg, capture_dir=capture_dir)
         trained_a, _ = phase_train(dev, cfg_a, iterations=10,
                                    label="14 anchor", kernels="CD")
+        phase_train(dev, CFG_P, iterations=10, label="20 packed train")
         phase_cli_train(dev, cfg)
         phase_eval(capture)
     results = {"raster_fwd": fwd, "raster_bwd": bwd, "anchor_fwd": afwd,

@@ -68,7 +68,7 @@ def _load(args, device):
 
 def _config(args) -> RenderConfig:
     kw = {f: getattr(args, f) for f in ("tile_size", "max_dup", "max_per_tile",
-                                        "tile_chunk", "dtype")
+                                        "tile_chunk", "depth_bits", "dtype")
           if getattr(args, f, None) is not None}
     return RenderConfig(**kw)
 
@@ -334,6 +334,9 @@ def main(argv=None):
         sp.add_argument("--dtype", choices=("float32", "bfloat16"),
                         help="scene storage dtype (bfloat16 stores all but "
                         "the positions in bf16; compute stays f32)")
+        sp.add_argument("--depth-bits", dest="depth_bits", type=int,
+                        help="packed sort depth bits (0 = exact sort, the "
+                        "default)")
 
     sp = sub.add_parser("info", help="scene statistics")
     sp.add_argument("--ply", required=True)

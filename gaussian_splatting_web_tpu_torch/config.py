@@ -2,11 +2,18 @@
 
 Every field of the JAX package's `RenderConfig` is kept under the same
 name, so `jax_config = RenderConfig(**dataclasses.asdict(port_config))`
-builds the reference configuration for parity runs. The defaults equal the
-JAX defaults except for the fields that select the TPU's packed or tiered
+builds the reference configuration for parity runs, and every
+configuration the JAX package accepts builds here. The defaults equal the
+JAX defaults except for the fields that select the packed or tiered
 binning: the port ships the exact mode (`depth_bits=0, tier_split=0,
 pack_fields=False, pack_mean16=False, pack_grads=False`), which is the mode
-the JAX package's own oracle tests pin.
+the JAX package's own oracle tests pin. The packed modes run when asked
+for: the packed single-key sort (`depth_bits`), tiered duplication
+(`tier_split`, `tier_mid`, `mid_frac`, `big_frac`), the ellipse-tile cull
+(`tile_cull`), bf16 fields (`pack_fields`), the tile-relative 1/32-px mean
+(`pack_mean16`), bf16 pair gradients in the fold (`pack_grads`) and the
+packed anchor binning (`binning="anchor", pack_fields=True`, 16-bit depth
+keys).
 
 The TPU grid fields (`r_tiles`, `r_tiles_bwd`, `early_exit`,
 `use_pallas`) are kept only for that one-to-one conversion; the port
@@ -15,8 +22,7 @@ tile deal of `parallel/` (each shard's strip is a multiple of it), as in
 the JAX package. `dtype` is the scene's storage dtype
 (`GaussianCloud.with_storage_dtype`, applied by `render_impl`) and
 `debug_selected` the splat highlight (`ops/rasterize.py::
-highlight_selected`). Modes the port does not implement yet raise
-`NotImplementedError` naming the ROADMAP item that will port them.
+highlight_selected`).
 """
 
 from __future__ import annotations
@@ -86,24 +92,18 @@ class RenderConfig:
     debug_selected: int = -1
 
     def __post_init__(self):
-        unported = (
-            (self.depth_bits > 0, "depth_bits > 0 (packed sort key)",
-             "ROADMAP §1 item 12"),
-            (self.tier_split > 0, "tier_split > 0 (tiered duplication)",
-             "ROADMAP §1 item 12"),
-            (self.pack_fields, "pack_fields (bf16 sort payloads)",
-             "ROADMAP §1 item 12"),
-            (self.tile_cull, "tile_cull (ellipse-rect slot test)",
-             "ROADMAP §1 item 12"),
-        )
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"the PyTorch port does not implement {what} yet; "
-                    f"{item} ports it")
         if self.dtype not in STORAGE_DTYPES:
             raise ValueError(f"unsupported storage dtype {self.dtype!r}; "
                              f"one of {STORAGE_DTYPES}")
+        if self.binning == "anchor" and self.pack_fields:
+            # the JAX package's packed anchor order key d16·mult + lane must
+            # fit int32 (JAX `ops/pallas/anchor.py::_order_mult`)
+            union = 2 * (self.max_per_tile // 256 + 2) * 256
+            if 1 << (union - 1).bit_length() > 1 << 14:
+                raise ValueError(
+                    f"packed anchor order keys overflow int32 for "
+                    f"max_per_tile={self.max_per_tile} (keep it below 7936, "
+                    "or use pack_fields=False)")
 
     def grid_size(self, width: int, height: int) -> Tuple[int, int]:
         """Number of tiles in (x, y)."""

@@ -79,7 +79,7 @@ raster_bwd_kernel(const float* __restrict__ fields,
                   const int* __restrict__ last_idx,
                   const float* __restrict__ d_rgb,
                   const float* __restrict__ d_alpha,
-                  int width, int height, int gx, int k_cap,
+                  int width, int height, int gx, int k_cap, bool mean16,
                   float log_cut, float alpha_max,
                   float* __restrict__ dpairs) {
   __shared__ BwdStage stage;
@@ -90,7 +90,7 @@ raster_bwd_kernel(const float* __restrict__ fields,
       [=](int k) { return dpairs + static_cast<size_t>(start + k) * kGrad; },
       min(tile_count[tile], k_cap), tile % gx, tile / gx, width, height,
       FrameIn{d_rgb, d_alpha, final_log_t, last_idx, width}, log_cut,
-      alpha_max, stage);
+      alpha_max, stage, mean16);
 }
 
 // The tile-list entry (replaces backward_pair_grads(..., tile_ids=)):
@@ -109,7 +109,7 @@ raster_bwd_tiles_kernel(const float* __restrict__ fields,
                         const int* __restrict__ last_idx,
                         const float* __restrict__ d_rgba, int num_tiles,
                         int width, int height, int gx, int k_cap,
-                        float log_cut, float alpha_max,
+                        bool mean16, float log_cut, float alpha_max,
                         float* __restrict__ dpairs) {
   __shared__ BwdStage stage;
   const int pos = list_order[blockIdx.x];
@@ -122,7 +122,7 @@ raster_bwd_tiles_kernel(const float* __restrict__ fields,
       [=](int k) { return dpairs + static_cast<size_t>(start + k) * kGrad; },
       real ? min(tile_count[tile], k_cap) : 0, tile % gx, tile / gx, width,
       height, SlotIn{d_rgba + 4 * slot, final_log_t + slot, last_idx + slot},
-      log_cut, alpha_max, stage);
+      log_cut, alpha_max, stage, mean16);
 }
 
 }  // namespace
@@ -131,7 +131,8 @@ extern "C" {
 
 // Launches kernel B on `stream` of `device` over gx * gy tiles: first the
 // heavy-first schedule into `tile_order` (gx * gy ints of scratch), then
-// the backward, block b walking tile tile_order[b]. Returns
+// the backward, block b walking tile tile_order[b]; `mean16` != 0
+// quantizes each pair's tile-local mean as kernel A does. Returns
 // cudaGetLastError() (0 on success). Pointers are device pointers; `fields`
 // must be 16-byte aligned with rows of 12 floats; `dpairs` [M, 9] must be
 // zeroed (rows of pairs past every pixel's walk and past k_cap are not
@@ -141,7 +142,7 @@ int raster_bwd(const float* fields, const int* sorted_gidx,
                const float* final_log_t, const int* last_idx,
                const float* d_rgb, const float* d_alpha,
                int width, int height, int gx, int gy, int k_cap,
-               float log_cut, float alpha_max, float* dpairs,
+               int mean16, float log_cut, float alpha_max, float* dpairs,
                int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -152,8 +153,8 @@ int raster_bwd(const float* fields, const int* sorted_gidx,
         TileCount{tile_count}, num_tiles, k_cap, tile_order);
     raster_bwd_kernel<<<num_tiles, kPix, 0, st>>>(
         fields, sorted_gidx, tile_start, tile_count, tile_order, final_log_t,
-        last_idx, d_rgb, d_alpha, width, height, gx, k_cap, log_cut,
-        alpha_max, dpairs);
+        last_idx, d_rgb, d_alpha, width, height, gx, k_cap, mean16 != 0,
+        log_cut, alpha_max, dpairs);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -164,8 +165,8 @@ int raster_bwd(const float* fields, const int* sorted_gidx,
 // first the heavy-first schedule of the list positions into `list_order`
 // (num_ids ints of scratch), then the backward, reading position i's
 // cotangent from slot i of d_rgba [num_ids, 256, 4] and its residual from
-// final_log_t and last_idx [num_ids, 256]. Returns cudaGetLastError() (0 on
-// success). Pointers are device pointers; `fields` must be 16-byte aligned;
+// final_log_t and last_idx [num_ids, 256]; `mean16` as in raster_bwd.
+// Returns cudaGetLastError() (0 on success). Pointers are device pointers; `fields` must be 16-byte aligned;
 // `dpairs` [M, 9] must be zeroed (rows of unlisted tiles, of pairs past
 // every pixel's walk and past k_cap are not written).
 int raster_bwd_tiles(const float* fields, const int* sorted_gidx,
@@ -173,7 +174,7 @@ int raster_bwd_tiles(const float* fields, const int* sorted_gidx,
                      const int* tile_ids, int* list_order,
                      const float* final_log_t, const int* last_idx,
                      const float* d_rgba, int num_ids, int width, int height,
-                     int gx, int gy, int k_cap, float log_cut,
+                     int gx, int gy, int k_cap, int mean16, float log_cut,
                      float alpha_max, float* dpairs, int device,
                      void* stream) {
   const cudaError_t set = cudaSetDevice(device);
@@ -187,7 +188,7 @@ int raster_bwd_tiles(const float* fields, const int* sorted_gidx,
     raster_bwd_tiles_kernel<<<num_ids, kPix, 0, st>>>(
         fields, sorted_gidx, tile_start, tile_count, tile_ids, list_order,
         final_log_t, last_idx, d_rgba, num_tiles, width, height, gx, k_cap,
-        log_cut, alpha_max, dpairs);
+        mean16 != 0, log_cut, alpha_max, dpairs);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,11 @@
 //   the first violator and everything after it do not.
 // The TPU-only parts are left out: bf16x2/x3 matmul splits, the
 // triangular-matmul cumsum, 128-lane slab DMA, R-tile groups, LOG_PAD
-// lane masking and the packed-payload decode.
+// lane masking and the packed-payload decode. Of the packed modes, only
+// pack_mean16 reaches the kernel (the `mean16` flag): each pair's
+// tile-local mean is rounded to 1/32 px as the JAX package's packed mean
+// payload rounds it (tile_walk.cuh::quantize_mean16); pack_fields' bf16
+// fields arrive already rounded in `fields`.
 //
 // What bounds it on this card: per (pair, pixel) step the work is ~20 FP32
 // operations and three transcendentals out of shared memory; device memory
@@ -71,7 +75,7 @@ raster_fwd_kernel(const float* __restrict__ fields,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_count,
                   const int* __restrict__ tile_order,
-                  int width, int height, int gx, int k_cap,
+                  int width, int height, int gx, int k_cap, bool mean16,
                   float log_cut, float alpha_max, float log_eps,
                   float* __restrict__ rgb, float* __restrict__ alpha,
                   float* __restrict__ final_log_t,
@@ -83,7 +87,7 @@ raster_fwd_kernel(const float* __restrict__ fields,
       fields, [=](int k) { return __ldg(sorted_gidx + start + k); },
       min(tile_count[tile], k_cap), tile % gx, tile / gx, width, height,
       log_cut, alpha_max, log_eps, stage,
-      FrameOut{rgb, alpha, final_log_t, last_idx, width});
+      FrameOut{rgb, alpha, final_log_t, last_idx, width}, mean16);
 }
 
 // The tile-list entry (replaces composite_tiles_pallas(..., tile_ids=)):
@@ -99,8 +103,8 @@ raster_fwd_tiles_kernel(const float* __restrict__ fields,
                         const int* __restrict__ tile_ids,
                         const int* __restrict__ list_order, int num_tiles,
                         int width, int height, int gx, int k_cap,
-                        float log_cut, float alpha_max, float log_eps,
-                        float4* __restrict__ rgba,
+                        bool mean16, float log_cut, float alpha_max,
+                        float log_eps, float4* __restrict__ rgba,
                         float* __restrict__ final_log_t,
                         int* __restrict__ last_idx) {
   __shared__ PairStage<kFwdBatch> stage;
@@ -113,7 +117,7 @@ raster_fwd_tiles_kernel(const float* __restrict__ fields,
       fields, [=](int k) { return __ldg(sorted_gidx + start + k); },
       real ? min(tile_count[tile], k_cap) : 0, tile % gx, tile / gx, width,
       height, log_cut, alpha_max, log_eps, stage,
-      SlotOut{rgba + slot, final_log_t + slot, last_idx + slot});
+      SlotOut{rgba + slot, final_log_t + slot, last_idx + slot}, mean16);
 }
 
 }  // namespace
@@ -122,13 +126,14 @@ extern "C" {
 
 // Launches kernel A on `stream` of `device` over gx * gy tiles: first the
 // heavy-first schedule into `tile_order` (gx * gy ints of scratch), then
-// the compositor, block b compositing tile tile_order[b]. Returns
+// the compositor, block b compositing tile tile_order[b]; `mean16` != 0
+// quantizes each pair's tile-local mean (pack_mean16). Returns
 // cudaGetLastError() (0 on success). Pointers are device pointers;
 // `fields` must be 16-byte aligned with rows of 12 floats.
 int raster_fwd(const float* fields, const int* sorted_gidx,
                const int* tile_start, const int* tile_count, int* tile_order,
                int width, int height, int gx, int gy, int k_cap,
-               float log_cut, float alpha_max, float log_eps,
+               int mean16, float log_cut, float alpha_max, float log_eps,
                float* rgb, float* alpha, float* final_log_t, int* last_idx,
                int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
@@ -140,8 +145,8 @@ int raster_fwd(const float* fields, const int* sorted_gidx,
         TileCount{tile_count}, num_tiles, k_cap, tile_order);
     raster_fwd_kernel<<<num_tiles, kPix, 0, st>>>(
         fields, sorted_gidx, tile_start, tile_count, tile_order, width,
-        height, gx, k_cap, log_cut, alpha_max, log_eps, rgb, alpha,
-        final_log_t, last_idx);
+        height, gx, k_cap, mean16 != 0, log_cut, alpha_max, log_eps, rgb,
+        alpha, final_log_t, last_idx);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -152,14 +157,16 @@ int raster_fwd(const float* fields, const int* sorted_gidx,
 // positions into `list_order` (num_ids ints of scratch), then the
 // compositor, writing position i's tile into slot i of rgba [num_ids, 256,
 // 4], final_log_t and last_idx [num_ids, 256] (pixels row-major in the
-// tile). Returns cudaGetLastError() (0 on success). Pointers are device
+// tile); `mean16` as in raster_fwd. Returns cudaGetLastError() (0 on
+// success). Pointers are device
 // pointers; `fields` and `rgba` must be 16-byte aligned.
 int raster_fwd_tiles(const float* fields, const int* sorted_gidx,
                      const int* tile_start, const int* tile_count,
                      const int* tile_ids, int* list_order, int num_ids,
                      int width, int height, int gx, int gy, int k_cap,
-                     float log_cut, float alpha_max, float log_eps,
-                     float* rgba, float* final_log_t, int* last_idx,
+                     int mean16, float log_cut, float alpha_max,
+                     float log_eps, float* rgba, float* final_log_t,
+                     int* last_idx,
                      int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -171,8 +178,8 @@ int raster_fwd_tiles(const float* fields, const int* sorted_gidx,
         list_order);
     raster_fwd_tiles_kernel<<<num_ids, kPix, 0, st>>>(
         fields, sorted_gidx, tile_start, tile_count, tile_ids, list_order,
-        num_tiles, width, height, gx, k_cap, log_cut, alpha_max, log_eps,
-        reinterpret_cast<float4*>(rgba), final_log_t, last_idx);
+        num_tiles, width, height, gx, k_cap, mean16 != 0, log_cut, alpha_max,
+        log_eps, reinterpret_cast<float4*>(rgba), final_log_t, last_idx);
   }
   return static_cast<int>(cudaGetLastError());
 }

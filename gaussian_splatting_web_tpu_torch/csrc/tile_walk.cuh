@@ -153,13 +153,24 @@ struct SlotIn {
   }
 };
 
+// pack_mean16's round trip of a tile-relative coordinate (the twin's
+// ops/sort.py::quantize_mean16): clip(rint((rel + 1024) * 32), 0, 65535)
+// / 32 - 1024, rounding half to even; the rounded steps keep nvcc from
+// contracting them into an FMA, and a NaN stays NaN as in the twin.
+__device__ __forceinline__ float quantize_mean16(float rel) {
+  float q = rintf(__fmul_rn(__fadd_rn(rel, 1024.f), 32.f));
+  q = q < 0.f ? 0.f : (q > 65535.f ? 65535.f : q);
+  return __fsub_rn(__fmul_rn(q, 0.03125f), 1024.f);
+}
+
 // Gathers splat g's field row (three 16-byte loads), forms the six rows
 // exactly as the twin does and the footprint mask, and stores them in slot
-// i of `s`.
+// i of `s`. With `mean16` the tile-local mean is quantized first, so the
+// power and the footprint mask both see the mean the twin composites.
 template <int kN>
 __device__ __forceinline__ PairForm stage_pair(const float* fields, int g,
                                                float ox, float oy,
-                                               float log_cut,
+                                               float log_cut, bool mean16,
                                                PairStage<kN>& s, int i) {
   const float4* row =
       reinterpret_cast<const float4*>(fields + static_cast<size_t>(g) * kRow);
@@ -169,6 +180,10 @@ __device__ __forceinline__ PairForm stage_pair(const float* fields, int g,
   PairForm p;
   p.mx = __fsub_rn(f0.x, ox);
   p.my = __fsub_rn(f0.y, oy);
+  if (mean16) {
+    p.mx = quantize_mean16(p.mx);
+    p.my = quantize_mean16(p.my);
+  }
   p.ca = f0.z;
   p.cb = f0.w;
   p.cc = f1.x;
@@ -204,11 +219,12 @@ __device__ __forceinline__ float pair_power(float4 va, float4 vb, float px,
 // Kernel A's composite of tile (tx, ty) over its `count` pairs, front to
 // back, by the whole CTA; hands each pixel's outputs (rgb premultiplied,
 // alpha, final log-T, last contributing index, -1 if none) to `out`.
+// `mean16`: pack_mean16's tile-relative mean (A and its list entry only).
 template <class GidxOf, class Out>
 __device__ __forceinline__ void composite_tile(
     const float* __restrict__ fields, GidxOf gidx_of, int count, int tx,
     int ty, int width, int height, float log_cut, float alpha_max,
-    float log_eps, PairStage<kFwdBatch>& s, Out out) {
+    float log_eps, PairStage<kFwdBatch>& s, Out out, bool mean16 = false) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int lx = block_x0(warp) + lane % kBlockW;
@@ -233,8 +249,8 @@ __device__ __forceinline__ void composite_tile(
     // also the barrier that lets this batch overwrite the previous one
     if (__syncthreads_count(done) == kPix) break;
     const int j = b0 + static_cast<int>(threadIdx.x);
-    if (j < count) stage_pair(fields, gidx_of(j), ox, oy, log_cut, s,
-                              threadIdx.x);
+    if (j < count) stage_pair(fields, gidx_of(j), ox, oy, log_cut, mean16,
+                              s, threadIdx.x);
     __syncthreads();
 
     const int n = min(kFwdBatch, count - b0);
@@ -305,12 +321,14 @@ __device__ __forceinline__ void warp_sum9(const float (&p)[kGrad], int lane,
 // front, by the whole CTA, from the forward's residual (final log-T, last
 // contributing index) and the image cotangents, which `in` reads for each
 // pixel inside the frame; stores each pair's row at row_of(k) with plain
-// stores (rows of pairs past every pixel's walk are not written).
+// stores (rows of pairs past every pixel's walk are not written). `mean16`
+// as in composite_tile; the mean rows are taken at the quantized mean and
+// pass to the mean's gradient unchanged (the straight-through rule).
 template <class GidxOf, class RowOf, class In>
 __device__ __forceinline__ void backward_tile(
     const float* __restrict__ fields, GidxOf gidx_of, RowOf row_of, int count,
     int tx, int ty, int width, int height, In in, float log_cut,
-    float alpha_max, BwdStage& s) {
+    float alpha_max, BwdStage& s, bool mean16 = false) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int lx = block_x0(warp) + lane % kBlockW;
@@ -349,7 +367,7 @@ __device__ __forceinline__ void backward_tile(
     const int n = min(kBwdBatch, n_walk - b0);
     if (static_cast<int>(threadIdx.x) < n)
       f = stage_pair(fields, gidx_of(b0 + threadIdx.x), ox, oy, log_cut,
-                     s.pair, threadIdx.x);
+                     mean16, s.pair, threadIdx.x);
     __syncthreads();
 
     // back to front, 32 pairs per ballot; the branch is warp-uniform

@@ -1,6 +1,7 @@
 """Anchor-tile binning and the plain PyTorch versions of the anchor
 compositor's kernels C and D: the port of the JAX package's
-`ops/pallas/anchor.py` in its exact mode (`pack_fields=False`).
+`ops/pallas/anchor.py`, in its exact mode (`pack_fields=False`) and its
+packed mode (`pack_fields=True`).
 
 Binning (`bin_splats_anchor`, JAX `anchor.py:105-311`):
   * a live splat whose footprint fits a 2×2-tile window (`ANCHOR_W`) is
@@ -14,8 +15,14 @@ Binning (`bin_splats_anchor`, JAX `anchor.py:105-311`):
   * all N + max_dup·cap_b entries sort by (tile, depth); dead entries take
     the sentinel tile T and sort last. Like the dup binning
     (`ops/sort.py`), the order comes from one stable `torch.sort` of an
-    int64 key tile << 32 | sortable(depth), so exact depth ties keep slot
-    order (the JAX package's two-key `lax.sort` is not stable).
+    int64 key, so tied keys keep slot order (the JAX package's `lax.sort`
+    is not stable). The exact mode's key is tile << 32 | sortable(depth);
+    the packed mode's is JAX's tile << 16 | d16, d16 = `depth16`, a 16-bit
+    depth on the [min, max] depth range of the live splats (a dup entry
+    takes its splat's d16), and then `sorted_depth` holds d16, so the
+    merge below ranks by (d16, union lane): JAX's packed order key
+    d16·mult + lane. The packed mode needs fewer than 65,536 tiles
+    (`ops/rasterize.py::uses_anchor` falls back to the dup binning).
 
 Merge (`merge_tiles`, the twin of `_merge_tile` :431 and `_TileScalars`
 :380, vectorised over tiles): tile (tx, ty) reads two contiguous ranges of
@@ -26,13 +33,17 @@ positions past it are dropped). Entries that touch the tile (range B: dup
 entries in column tx, anchors in column tx or wide; range A: tall anchors
 in column tx or wide) rank by (sortable depth, union lane), the union lane
 being q·256 + lane with range B's lanes after range A's, and the first
-`k_cap` are kept.
+`k_cap` are kept. The sort is stable and a range's two runs ascend in
+(key, position), so the keys are unique and the merge needs no tie rule.
 
 The compositing of the ordered list, forward and backward, is the dup
 path's plain compositor (`ops/rasterize.py`) run over an ordered view of
 the entries, and `fold_anchor_grads` sums the backward's four row groups
 and folds them onto the splats (`ops/pallas/raster.py::_fold_pair_grads`
-over the anchor bins).
+over the anchor bins, rounding the rows to bf16 with `pack_grads`). The
+packed mode's fields are bf16-rounded by `pack_splat_fields`; the anchor
+compositor never applies `pack_mean16` (JAX's anchor slab carries the f32
+mean).
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from .sort import (
     _footprints,
     candidate_slot_tiles,
     float_to_sortable_uint,
+    quantize_bf16,
 )
 
 KCL = 256       # positions per cover chunk of a range
@@ -80,7 +92,8 @@ class AnchorBins:
                   starts[T] = live entries.
     sorted_gidx:  [M] int32 gaussian id of each sorted entry.
     sorted_meta:  [M] uint8, 1 = tall, 2 = wide, 4 = dup entry.
-    sorted_depth: [M] int32 holding the uint32 sortable depth bits.
+    sorted_depth: [M] int32 holding the uint32 sortable depth bits (the
+                  packed mode: d16).
     sorted_slot:  [M] int64, position → slot (a permutation of M).
     idx_b:        [cap_b] int64 the compacted big splats (0 past n_big).
     n_big, num_pairs, overflow: [] int64 counts.
@@ -117,13 +130,34 @@ class Ranges(NamedTuple):
     base: torch.Tensor
 
 
+def depth16(depth: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """The packed mode's 16-bit depth on the dynamic [min, max] depth range
+    of the live splats, front to back ascending, as int64 (JAX
+    `anchor.py::_depth16`, in its f32 operations); 0 where not live."""
+    if depth.numel() == 0:
+        return torch.zeros_like(depth, dtype=torch.int64)
+    big = 3.4e38
+    lo = torch.where(live, depth, big).min()
+    hi = torch.where(live, depth, -big).max()
+    # a true f32 division: `float / tensor` multiplies by the reciprocal
+    scale = torch.div(depth.new_tensor(65535.0),
+                      torch.clamp(hi - lo, min=1e-20))
+    d = torch.clamp((depth - lo) * scale, 0.0, 65535.0)
+    return torch.where(live, d, 0.0).to(torch.int64)
+
+
 @torch.no_grad()
 def bin_splats_anchor(splats: ProjectedSplats, width: int, height: int,
                       config: RenderConfig) -> AnchorBins:
-    """Anchor-tile binning in exact mode (no gradient flows through it);
-    see the module docstring."""
+    """Anchor-tile binning, exact or packed by `config.pack_fields` (no
+    gradient flows through it); see the module docstring."""
     gx, gy = config.grid_size(width, height)
     num_tiles = gx * gy
+    packed = bool(config.pack_fields)
+    if packed and num_tiles >= (1 << 16):
+        raise ValueError(
+            f"anchor binning packs tile ids in 16 bits; {num_tiles} tiles "
+            "needs the exact mode (pack_fields=False) or the dup binning")
     n = splats.depth.shape[0]
     d = config.max_dup
     dev = splats.depth.device
@@ -133,7 +167,10 @@ def bin_splats_anchor(splats: ProjectedSplats, width: int, height: int,
     live = splats.valid & (ntg > 0)
     small = live & (rw <= ANCHOR_W) & (rh <= ANCHOR_W)
     big = live & ~small
-    depth_key = float_to_sortable_uint(splats.depth)
+    if packed:
+        depth_key, shift = depth16(splats.depth, live), 16
+    else:
+        depth_key, shift = float_to_sortable_uint(splats.depth), 32
 
     tile_a = torch.where(small, y0.long() * gx + x0, num_tiles)
     meta_a = (rw > 1).to(torch.uint8) * 2 + (rh > 1).to(torch.uint8)
@@ -157,7 +194,7 @@ def bin_splats_anchor(splats: ProjectedSplats, width: int, height: int,
     tile = torch.cat([tile_a, tile_b.reshape(-1).long()])
     dkey = torch.cat([depth_key,
                       depth_key[idx_b].expand(d, cap_b).reshape(-1)])
-    _, order = torch.sort((tile << 32) | dkey, stable=True)
+    _, order = torch.sort((tile << shift) | dkey, stable=True)
     gid = torch.cat([torch.arange(n, device=dev),
                      idx_b.expand(d, cap_b).reshape(-1)])
     meta = torch.cat([meta_a, torch.full((d * cap_b,), 4, dtype=torch.uint8,
@@ -288,7 +325,8 @@ def merge_tiles(abins: AnchorBins, gx: int, gy: int,
 def ordered_view(abins: AnchorBins, merge: Merge,
                  config: RenderConfig) -> Tuple[TileBins, RenderConfig]:
     """The ordered lists as dup-path bins (segment t = t·k_cap, k_used
-    long) and a config whose tile cap is k_cap, for the plain compositor."""
+    long) and a config whose tile cap is k_cap, for the plain compositor
+    (with `pack_mean16` off: the anchor path keeps the f32 mean)."""
     num_tiles, kc = merge.ordered.shape
     dev = merge.ordered.device
     pos = merge.ordered.long()
@@ -302,7 +340,7 @@ def ordered_view(abins: AnchorBins, merge: Merge,
         num_pairs=abins.num_pairs,
         overflow=abins.overflow,
     )
-    return view, config.replace(max_per_tile=kc)
+    return view, config.replace(max_per_tile=kc, pack_mean16=False)
 
 
 def composite_anchor_plain(fields: torch.Tensor, abins: AnchorBins,
@@ -342,14 +380,18 @@ def composite_anchor_backward_plain(
     return out
 
 
-def fold_anchor_grads(dpairs: torch.Tensor, abins: AnchorBins,
-                      n: int) -> torch.Tensor:
+def fold_anchor_grads(dpairs: torch.Tensor, abins: AnchorBins, n: int,
+                      config: RenderConfig | None = None) -> torch.Tensor:
     """Sum the four row groups [4, M, 9] in a fixed order and fold the
     entries onto the splats → [N, 9]: rows are copied to their slots (the
     slot map is a permutation), the anchors' slots are splats 0..N−1, and
     the dup tier's [max_dup, cap_b] slots are summed over max_dup and added
-    at the compacted big splats (unique indices: deterministic)."""
+    at the compacted big splats (unique indices: deterministic). With
+    `config.pack_grads` the summed rows are rounded to bf16 first, as JAX's
+    anchor backward folds them (`anchor.py:1385-1397`)."""
     dsum = ((dpairs[0] + dpairs[1]) + dpairs[2]) + dpairs[3]
+    if config is not None and config.pack_grads:
+        dsum = quantize_bf16(dsum)
     slots = abins.sorted_slot.shape[0]
     cap_b = abins.idx_b.shape[0]
     buf = dsum.new_zeros((slots, GRAD_ROW))

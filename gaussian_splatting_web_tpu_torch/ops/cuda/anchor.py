@@ -274,7 +274,7 @@ class AnchorCompositeFn(torch.autograd.Function):
         dpairs = composite_anchor_backward(fields, abins, width, height,
                                            config, residual, Merge(*merge),
                                            d_rgb, d_alpha)
-        seg = fold_anchor_grads(dpairs, abins, fields.shape[0])
+        seg = fold_anchor_grads(dpairs, abins, fields.shape[0], config)
         return F.pad(seg, (0, FIELD_ROW - GRAD_ROW)), None, None, None, None
 
 

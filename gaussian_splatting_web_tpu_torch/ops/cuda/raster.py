@@ -22,7 +22,10 @@ changed nowhere else.
 
 Both kernels run the tiles heavy first (each launch first writes the
 schedule, `csrc/tile_order.cuh`) and skip the 8x4 pixel blocks a pair
-cannot reach (`csrc/footprint.cuh`). `prepare_fwd` and `prepare_bwd` (and
+cannot reach (`csrc/footprint.cuh`). Every entry takes the `mean16` flag
+(`config.pack_fields and config.pack_mean16`): each pair's tile-local mean
+is then rounded to 1/32 px as the twin's `_segments` rounds it, and the
+backward folds with `config.pack_grads`. `prepare_fwd` and `prepare_bwd` (and
 `prepare_fwd_tiles`, `prepare_bwd_tiles`) do a launch's checks and
 allocations and return a callable that only launches, so a kernel can be
 timed alone. `heavy_first_order` (with `tile_order` for A and B,
@@ -53,7 +56,7 @@ from ..rasterize import (
     composite_tiles_backward_plain,
     fold_pair_grads,
 )
-from ..sort import TileBins
+from ..sort import TileBins, mean16_on
 from . import build
 
 launches = 0             # kernel A
@@ -210,13 +213,14 @@ def prepare_fwd(fields, bins, width, height, config):
         last_idx=torch.empty((height, width), dtype=torch.int32, device=dev))
     order = torch.empty((gx * gy,), dtype=torch.int32, device=dev)
     ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count, order)
-    fn, err_str = _kernel_fn("raster_fwd", 5, 5, 3, 4)
+    fn, err_str = _kernel_fn("raster_fwd", 5, 6, 3, 4)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    mean16 = int(mean16_on(config))
 
     def run():
         global launches
         err = fn(*(t.data_ptr() for t in ins),
-                 width, height, gx, gy, config.max_per_tile,
+                 width, height, gx, gy, config.max_per_tile, mean16,
                  math.log(config.alpha_cutoff), config.alpha_max,
                  math.log(config.transmittance_eps),
                  *(t.data_ptr() for t in out), dev.index, stream)
@@ -274,13 +278,14 @@ def prepare_bwd(fields, bins, width, height, config, composite, d_rgb,
     order = torch.empty((gx * gy,), dtype=torch.int32, device=dev)
     ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count, order,
            composite.final_log_t, composite.last_idx, d_rgb, d_alpha)
-    fn, err_str = _kernel_fn("raster_bwd", 9, 5, 2, 1)
+    fn, err_str = _kernel_fn("raster_bwd", 9, 6, 2, 1)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    mean16 = int(mean16_on(config))
 
     def run():
         global launches_bwd
         err = fn(*(t.data_ptr() for t in ins),
-                 width, height, gx, gy, config.max_per_tile,
+                 width, height, gx, gy, config.max_per_tile, mean16,
                  math.log(config.alpha_cutoff), config.alpha_max,
                  dpairs.data_ptr(), dev.index, stream)
         if err != 0:
@@ -324,7 +329,7 @@ class CompositeFn(torch.autograd.Function):
         residual = Composite(None, None, final_log_t, last_idx)
         dpairs = composite_backward(fields, bins, width, height, config,
                                     residual, d_rgb, d_alpha)
-        seg = fold_pair_grads(dpairs, bins, fields.shape[0])
+        seg = fold_pair_grads(dpairs, bins, fields.shape[0], config)
         return F.pad(seg, (0, FIELD_ROW - GRAD_ROW)), None, None, None, None
 
 
@@ -356,14 +361,15 @@ def prepare_fwd_tiles(fields, bins, tile_ids, width, height, config):
     order = torch.empty((n_ids,), dtype=torch.int32, device=dev)
     ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count,
            tile_ids, order)
-    fn, err_str = _kernel_fn("raster_fwd", 6, 6, 3, 3,
+    fn, err_str = _kernel_fn("raster_fwd", 6, 7, 3, 3,
                               entry="raster_fwd_tiles")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    mean16 = int(mean16_on(config))
 
     def run():
         global launches_tiles
         err = fn(*(t.data_ptr() for t in ins),
-                 n_ids, width, height, gx, gy, config.max_per_tile,
+                 n_ids, width, height, gx, gy, config.max_per_tile, mean16,
                  math.log(config.alpha_cutoff), config.alpha_max,
                  math.log(config.transmittance_eps),
                  *(t.data_ptr() for t in out), dev.index, stream)
@@ -399,14 +405,15 @@ def prepare_bwd_tiles(fields, bins, tile_ids, width, height, config,
     order = torch.empty((n_ids,), dtype=torch.int32, device=dev)
     ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count,
            tile_ids, order, final_log_t, last_idx, d_rgba)
-    fn, err_str = _kernel_fn("raster_bwd", 9, 6, 2, 1,
+    fn, err_str = _kernel_fn("raster_bwd", 9, 7, 2, 1,
                               entry="raster_bwd_tiles")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    mean16 = int(mean16_on(config))
 
     def run():
         global launches_tiles_bwd
         err = fn(*(t.data_ptr() for t in ins),
-                 n_ids, width, height, gx, gy, config.max_per_tile,
+                 n_ids, width, height, gx, gy, config.max_per_tile, mean16,
                  math.log(config.alpha_cutoff), config.alpha_max,
                  dpairs.data_ptr(), dev.index, stream)
         if err != 0:
@@ -478,7 +485,7 @@ class CompositeTilesFn(torch.autograd.Function):
         dpairs = composite_tiles_backward(
             fields, bins, tile_ids, width, height, config, final_log_t,
             last_idx, d_rgba.contiguous())
-        seg = fold_pair_grads(dpairs, bins, fields.shape[0])
+        seg = fold_pair_grads(dpairs, bins, fields.shape[0], config)
         return (F.pad(seg, (0, FIELD_ROW - GRAD_ROW)), None, None, None,
                 None, None)
 

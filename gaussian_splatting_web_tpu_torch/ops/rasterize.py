@@ -8,7 +8,9 @@ max_per_tile))` front to back with
   * power = log(opacity) − ½(A dx² + 2B dx dy + C dy²), evaluated as the
     rank-6 bilinear form in TILE-LOCAL pixel coordinates (integer 0..15,
     means minus the tile origin), summed in the order the CUDA kernel
-    uses, so both give the same bits;
+    uses, so both give the same bits; with `pack_fields` and
+    `pack_mean16` the tile-local mean goes through `quantize_mean16`
+    first, as the JAX package's packed mean payload rounds it;
   * α = min(e^power, 0.99) where power ≥ log(1/255), else 0 (the cutoff is
     a compare on power, not on α);
   * the exclusive log-transmittance cumsum of log1p(−α); a pair
@@ -48,7 +50,13 @@ import torch.nn.functional as F
 from ..config import RenderConfig
 from ..core.types import CameraParams, GaussianCloud
 from .projection import ProjectedSplats, project_gaussians
-from .sort import TileBins, bin_splats
+from .sort import (
+    TileBins,
+    bin_splats,
+    mean16_on,
+    quantize_bf16,
+    quantize_mean16,
+)
 
 FIELD_ROW = 12   # mx, my, conic a, b, c, r, g, b, opacity, 3 zero pads
 GRAD_ROW = 9     # d mx, my, conic a, b, c, r, g, b, opacity (raster_bwd.py:368)
@@ -65,17 +73,26 @@ class Composite(NamedTuple):
     last_idx: torch.Tensor
 
 
-def pack_splat_fields(splats: ProjectedSplats) -> torch.Tensor:
+def pack_splat_fields(splats: ProjectedSplats,
+                      config: RenderConfig | None = None) -> torch.Tensor:
     """Per-splat compositor fields as one contiguous [N, 12] f32 array
-    (48-byte rows: three 16-byte loads per splat in the kernel)."""
+    (48-byte rows: three 16-byte loads per splat in the kernel). With
+    `config.pack_fields` conic a/b/c, rgb and opacity go through
+    `quantize_bf16` (JAX `ops/rasterize.py::pack_sorted_fields`); the mean
+    stays f32 (`pack_mean16` rounds it per pair, tile-relative, where the
+    compositor forms the tile-local mean)."""
     z = torch.zeros_like(splats.opacity)
-    return torch.stack(
+    fields = torch.stack(
         [splats.mean2d[:, 0], splats.mean2d[:, 1],
          splats.conic[:, 0], splats.conic[:, 1], splats.conic[:, 2],
          splats.rgb[:, 0], splats.rgb[:, 1], splats.rgb[:, 2],
          splats.opacity, z, z, z],
         dim=-1,
-    ).contiguous()
+    )
+    if config is not None and config.pack_fields:
+        fields = torch.cat([fields[:, :2], quantize_bf16(fields[:, 2:9]),
+                            fields[:, 9:]], dim=-1)
+    return fields.contiguous()
 
 
 def highlight_selected(fields: torch.Tensor,
@@ -154,6 +171,8 @@ def _segments(fields, bins, tile_ids, starts, counts, sl, k_len, gx,
     oy = ((tid // gx) * ts).to(f32)[:, None]
     mx = f[..., 0] - ox
     my = f[..., 1] - oy
+    if mean16_on(config):
+        mx, my = quantize_mean16(mx), quantize_mean16(my)
     ca, cb, cc = f[..., 2], f[..., 3], f[..., 4]
     op = f[..., 8]
 
@@ -327,23 +346,43 @@ def composite_tiles_backward_plain(
     return out
 
 
-def fold_pair_grads(dpairs: torch.Tensor, bins: TileBins,
-                    n: int) -> torch.Tensor:
+def fold_pair_grads(dpairs: torch.Tensor, bins: TileBins, n: int,
+                    config: RenderConfig | None = None) -> torch.Tensor:
     """Sum the sorted pair gradients [M, 9] back onto the splats → [N, 9]
-    (the exact single-tier `_fold_pair_grads`, ops/pallas/raster.py:655).
+    (JAX `ops/pallas/raster.py::_fold_pair_grads`).
 
-    Pair position i came from slot `sorted_slot[i]` = k·N + g of the
-    slot-major [max_dup, N] grid, and the map is a permutation, so the rows
-    are copied (never added) into a zero [max_dup·N, 9] buffer and the
-    buffer is summed over its slot axis: deterministic, no atomics. Slots
-    with no row (dead, or cut by the gather cap) stay zero. The buffer is
-    max_dup·N·36 bytes: 576 MB at 1M splats and max_dup 16."""
+    Pair position i came from slot `sorted_slot[i]`, and the map is a
+    permutation, so the rows are copied (never added) into a zero [S, 9]
+    buffer over all S slots. Tier A's slot-major [d_a, N] block is summed
+    over its slot axis; each compacted tier's [w_j, cap_j] block is summed
+    over w_j and its real rows copied to their gaussians, which are unique
+    (a gaussian sits in one tier): deterministic, no atomics. Slots with no
+    row (dead, or cut by the gather cap) stay zero. With
+    `config.pack_grads` each pair row is first rounded to bf16 (round to
+    nearest even), as JAX's packed sort payloads round it. The buffer is
+    S·36 bytes: 576 MB at 1M splats single-tier with max_dup 16, 124 MB
+    with JAX's default tiers (2, 4, 16)."""
+    if config is not None and config.pack_grads:
+        dpairs = quantize_bf16(dpairs)
     slots = bins.sorted_slot.shape[0]
-    buf = dpairs.new_zeros((slots, GRAD_ROW))
     if n == 0:
-        return buf.reshape(0, GRAD_ROW)
+        return dpairs.new_zeros((0, GRAD_ROW))
+    buf = dpairs.new_zeros((slots, GRAD_ROW))
     buf.index_copy_(0, bins.sorted_slot[:dpairs.shape[0]].long(), dpairs)
-    return buf.reshape(slots // n, n, GRAD_ROW).sum(0)
+    d_a = bins.tier_a_width or slots // n
+    seg = buf[:n * d_a].reshape(d_a, n, GRAD_ROW).sum(0)
+    if not bins.comp_widths:
+        return seg
+    comp = buf.new_zeros((n + 1, GRAD_ROW))   # row n takes the padding rows
+    off = n * d_a
+    for w_j, idx_j, cnt_j in zip(bins.comp_widths, bins.comp_idx,
+                                 bins.comp_count):
+        cap_j = idx_j.shape[0]
+        rows_j = buf[off:off + w_j * cap_j].reshape(w_j, cap_j, GRAD_ROW)
+        real = torch.arange(cap_j, device=idx_j.device) < cnt_j
+        comp.index_copy_(0, torch.where(real, idx_j, n), rows_j.sum(0))
+        off += w_j * cap_j
+    return seg + comp[:n]
 
 
 def assemble_image(tiles: torch.Tensor, width: int, height: int,
@@ -382,7 +421,7 @@ def rasterize_tiles(
     tensors, the plain twins for CPU tensors."""
     from .cuda.raster import composite_image
 
-    fields = highlight_selected(pack_splat_fields(splats), config)
+    fields = highlight_selected(pack_splat_fields(splats, config), config)
     return composite_image(fields, bins, width, height, config)
 
 
@@ -406,9 +445,19 @@ def composite_tiles_auto(splats: ProjectedSplats, tile_ids: torch.Tensor,
         raise ValueError(f"gx={gx} is not the frame's {width}x{height} grid")
     bins = bin_splats(splats, width, height, config)
     ts = config.tile_size
-    tiles = composite_tiles_subset(pack_splat_fields(splats), bins, tile_ids.to(torch.int32),
-                                   width, height, config)
+    tiles = composite_tiles_subset(pack_splat_fields(splats, config), bins,
+                                   tile_ids.to(torch.int32), width, height,
+                                   config)
     return tiles.reshape(-1, ts, ts, 4)
+
+
+def uses_anchor(width: int, height: int, config: RenderConfig) -> bool:
+    """Whether `bin_and_composite` takes the anchor binning: the packed
+    anchor key holds the tile id in 16 bits, so a packed frame of 65,536
+    tiles or more falls back to the dup binning, as the JAX package's
+    `select_fused_rasterizer` (`ops/rasterize.py:435-448`) does."""
+    return config.binning == "anchor" and (
+        config.num_tiles(width, height) < (1 << 16) or not config.pack_fields)
 
 
 def bin_and_composite(splats: ProjectedSplats, width: int, height: int,
@@ -416,13 +465,15 @@ def bin_and_composite(splats: ProjectedSplats, width: int, height: int,
     """Bin and composite by `config.binning`, differentiably → (Composite,
     bins): 'dup' takes `bin_splats` and kernels A and B, 'anchor' takes
     `ops/anchor.py::bin_splats_anchor` and kernels C and D (the plain
-    versions on the CPU). Both bins carry `num_pairs` and `overflow`."""
-    if config.binning == "anchor":
+    versions on the CPU), but for `uses_anchor`'s fallback. Both bins
+    carry `num_pairs` and `overflow`."""
+    if uses_anchor(width, height, config):
         from .anchor import bin_splats_anchor
         from .cuda.anchor import composite_image_anchor
 
         bins = bin_splats_anchor(splats, width, height, config)
-        fields = highlight_selected(pack_splat_fields(splats), config)
+        fields = highlight_selected(pack_splat_fields(splats, config),
+                                    config)
         return composite_image_anchor(fields, bins, width, height,
                                       config), bins
     bins = bin_splats(splats, width, height, config)

@@ -1,6 +1,6 @@
 """Port config, containers and camera loading vs the JAX package: field
-names, defaults, unported modes, numpy converters, cameras.json, and that
-the port never imports jax."""
+names, defaults, the packed and tiered modes, numpy converters,
+cameras.json, and that the port never imports jax."""
 
 import dataclasses
 import json
@@ -55,8 +55,33 @@ def test_config_defaults_equal_except_exact_mode():
     ("tile_cull", True),
 ])
 def test_config_rejects_unported_modes(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RenderConfig(**{field: value})
+    """The four modes this test used to see refused (ROADMAP §1 item 12)
+    are ported: each builds, converts 1:1 to the JAX config, and no
+    refusal naming the ROADMAP is left in the port."""
+    port = RenderConfig(**{field: value})
+    assert JaxConfig(**dataclasses.asdict(port)) == JaxConfig(
+        **{**EXACT_MODE, field: value})
+    import inspect
+
+    from gaussian_splatting_web_tpu_torch import config as port_config
+    assert "NotImplementedError" not in inspect.getsource(port_config)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("depth_bits", 19), ("tier_split", 2), ("pack_fields", True),
+    ("tile_cull", True), ("pack_mean16", True), ("pack_grads", True),
+])
+def test_config_accepts_item_12_modes(field, value):
+    """Every item-12 field converts 1:1 both ways, alone and together with
+    the others at the JAX package's defaults (its shipped packed
+    configuration), for either binning."""
+    port = RenderConfig(**{field: value})
+    assert JaxConfig(**dataclasses.asdict(port)) == JaxConfig(
+        **{**EXACT_MODE, field: value})
+    for binning in ("dup", "anchor"):
+        ref = JaxConfig(binning=binning, **{field: value})
+        assert JaxConfig(**dataclasses.asdict(
+            RenderConfig(**dataclasses.asdict(ref)))) == ref
 
 
 @pytest.mark.parametrize("field,value", [
@@ -87,8 +112,38 @@ def test_config_anchor_binning_converts_to_jax(max_per_tile):
                             **EXACT_MODE)
     assert anchor.c_max(port) == _c_max(ref)
     assert anchor.k_cap(port) == k_cap_for(ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RenderConfig(binning="anchor", pack_fields=True)
+
+    # the packed anchor mode: the config builds; a frame of 65,536 tiles
+    # or more is refused by its binning, as the JAX package's is, and
+    # bin_and_composite falls back to the dup binning there, as the JAX
+    # package's select_fused_rasterizer does
+    from gaussian_splatting_web_tpu.ops.rasterize import (
+        select_fused_rasterizer,
+    )
+    from gaussian_splatting_web_tpu_torch.ops.projection import (
+        ProjectedSplats,
+    )
+    from gaussian_splatting_web_tpu_torch.ops.rasterize import uses_anchor
+
+    packed = port.replace(pack_fields=True)
+    jpacked = JaxConfig(**dataclasses.asdict(packed))
+    for w, h in ((1920, 1080), (4096, 4096), (4112, 4096)):
+        want = select_fused_rasterizer(w, h, jpacked).__name__
+        assert uses_anchor(w, h, packed) == (want == "rasterize_anchor")
+        assert uses_anchor(w, h, port)       # the exact mode: any size
+    assert not uses_anchor(4096, 4096, packed)
+    empty = ProjectedSplats(
+        mean2d=torch.zeros(1, 2), conic=torch.ones(1, 3),
+        depth=torch.ones(1), radius=torch.zeros(1), rgb=torch.zeros(1, 3),
+        opacity=torch.ones(1), valid=torch.zeros(1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="16 bits"):
+        anchor.bin_splats_anchor(empty, 4096, 4096, packed)
+    assert int(anchor.bin_splats_anchor(empty, 4096, 4096,
+                                        port).num_pairs) == 0
+    # and past the packed order key's int32 limit the config is refused
+    with pytest.raises(ValueError, match="order keys"):
+        RenderConfig(binning="anchor", pack_fields=True, max_per_tile=7936)
+    RenderConfig(binning="anchor", pack_fields=True, max_per_tile=7935)
 
 
 def test_cloud_numpy_roundtrip():

@@ -1,7 +1,9 @@
 """Kernels A-D on the card vs their plain PyTorch twins, at small sizes
 (including the adversarial scene of their footprint cull), their tile
 schedules, and the launches of a render and of a training step; A's and B's
-tile-list entries (E) against the full-frame kernels and the list twins.
+tile-list entries (E) against the full-frame kernels and the list twins;
+the same under the JAX package's packed modes (CFG_P: A-E with the mean16
+flag on tiered bins, C and D on packed anchor bins).
 
 Marked `gpu`: every test skips without a CUDA device. The file imports
 neither jax nor tests/conftest.py, so it runs on the machine with the card:
@@ -45,6 +47,8 @@ from gaussian_splatting_web_tpu_torch.parallel.render_sharded import (
 pytestmark = pytest.mark.gpu
 
 CFG = RenderConfig(max_dup=16, max_per_tile=256)
+CFG_P = CFG.replace(depth_bits=19, tier_split=2, pack_fields=True,
+                    pack_mean16=True, pack_grads=True)
 # the repo's image rule (tests/conftest.py::assert_images_close)
 ATOL, MAX_BAD_FRAC = 2e-4, 2e-4
 FIELDS = ("xyz", "log_scale", "quat", "opacity_logit", "sh")
@@ -76,7 +80,7 @@ def _kernel_vs_plain(cloud, w, h, dev, cfg=CFG):
     camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
     splats = project_gaussians(cloud.to(dev), camera.to(dev), w, h, cfg)
     bins = bin_splats(splats, w, h, cfg)
-    fields = pack_splat_fields(splats)
+    fields = pack_splat_fields(splats, cfg)
     got = raster_cuda.composite_image(fields, bins, w, h, cfg)
     want = composite_image_plain(fields, bins, w, h, cfg)
     torch.cuda.synchronize()
@@ -134,7 +138,7 @@ def _backward_vs_plain(cloud, w, h, dev, cfg=CFG):
     camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
     splats = project_gaussians(cloud.to(dev), camera.to(dev), w, h, cfg)
     bins = bin_splats(splats, w, h, cfg)
-    fields = pack_splat_fields(splats)
+    fields = pack_splat_fields(splats, cfg)
     fwd = raster_cuda.composite_image(fields, bins, w, h, cfg)
     gen = torch.Generator().manual_seed(0)
     d_rgb = torch.randn((h, w, 3), generator=gen).to(dev)
@@ -148,8 +152,8 @@ def _backward_vs_plain(cloud, w, h, dev, cfg=CFG):
     torch.cuda.synchronize()
     assert torch.equal(got, again)            # bitwise repeatable
     n = fields.shape[0]
-    g_got = fold_pair_grads(got, bins, n)
-    g_want = fold_pair_grads(want, bins, n)
+    g_got = fold_pair_grads(got, bins, n, cfg)
+    g_want = fold_pair_grads(want, bins, n, cfg)
     stats = grad_parity(g_got.T, g_want.T)
     # f32 sums in another order; discrete flips bounded in count
     assert grad_parity_ok(stats, extra=2), stats
@@ -185,7 +189,7 @@ def test_kernels_schedule_tiles_heavy_first(device):
     splats = project_gaussians(_scene(3, n=200).to(device), camera.to(device),
                                w, h, cfg)
     bins = bin_splats(splats, w, h, cfg)
-    fields = pack_splat_fields(splats)
+    fields = pack_splat_fields(splats, cfg)
     assert int(bins.tile_count.max()) > cfg.max_per_tile
     capped = torch.clamp(bins.tile_count, max=cfg.max_per_tile)
     want = capped[raster_cuda.tile_order(bins, cfg).long()]
@@ -212,7 +216,7 @@ def _tiles_vs_full(cloud, w, h, dev, cfg=CFG, n_shards=3, chunk=2):
     camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
     splats = project_gaussians(cloud.to(dev), camera.to(dev), w, h, cfg)
     bins = bin_splats(splats, w, h, cfg)
-    fields = pack_splat_fields(splats)
+    fields = pack_splat_fields(splats, cfg)
     gx, gy = cfg.grid_size(w, h)
     t = gx * gy
     full = raster_cuda.composite_image(fields, bins, w, h, cfg)
@@ -248,8 +252,8 @@ def _tiles_vs_full(cloud, w, h, dev, cfg=CFG, n_shards=3, chunk=2):
         rows += part
         want = composite_tiles_backward_plain(fields, bins, ids, w, h, cfg,
                                               out.last_idx, d_list)
-        stats = grad_parity(fold_pair_grads(part, bins, n).T,
-                            fold_pair_grads(want, bins, n).T)
+        stats = grad_parity(fold_pair_grads(part, bins, n, cfg).T,
+                            fold_pair_grads(want, bins, n, cfg).T)
         assert grad_parity_ok(stats, extra=2), stats
     torch.cuda.synchronize()
     img = assemble_image(stitched, w, h, gx, gy)
@@ -396,7 +400,7 @@ def _anchor_vs_plain(cloud, w, h, dev, cfg=ACFG):
     camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
     splats = project_gaussians(cloud.to(dev), camera.to(dev), w, h, cfg)
     abins = anchor.bin_splats_anchor(splats, w, h, cfg)
-    fields = pack_splat_fields(splats)
+    fields = pack_splat_fields(splats, cfg)
     got, merge = anchor_cuda.composite_anchor(fields, abins, w, h, cfg)
     want, want_merge = anchor.composite_anchor_plain(fields, abins, w, h, cfg)
     torch.cuda.synchronize()
@@ -420,8 +424,8 @@ def _anchor_vs_plain(cloud, w, h, dev, cfg=ACFG):
     torch.cuda.synchronize()
     assert torch.equal(dp, again)
     n = fields.shape[0]
-    g_got = anchor.fold_anchor_grads(dp, abins, n)
-    g_want = anchor.fold_anchor_grads(dp_plain, abins, n)
+    g_got = anchor.fold_anchor_grads(dp, abins, n, cfg)
+    g_want = anchor.fold_anchor_grads(dp_plain, abins, n, cfg)
     assert torch.isfinite(g_got).all() and g_want.abs().max() > 0
     assert grad_parity_ok(grad_parity(g_got.T, g_want.T), extra=2)
     return abins, merge
@@ -586,3 +590,101 @@ def test_gaussian_sharded_step_is_deterministic(device, banded, stream):
     for f, a, b in zip(PARAMS, *grads):
         assert torch.equal(a, b), f
         assert torch.equal(a, getattr(ref, f).grad), f
+
+
+# --- the packed modes (ROADMAP §1 item 12) ----------------------------------
+
+
+@pytest.mark.parametrize("scene", ["random", "opaque", "ragged",
+                                   "adversarial"])
+def test_mean16_kernels_match_plain(device, scene):
+    """A, B, E-A and E-B with the mean16 flag on tiered, packed-key bins of
+    bf16 fields, against their twins (which quantize the same tile-local
+    mean), after the tiered pack_grads fold; B bitwise repeatable."""
+    cloud, w, h, cfg = {
+        "random": (_scene(0), 64, 48, CFG_P),
+        "opaque": (_scene(5, n=40, opaque=True), 48, 48, CFG_P),
+        "ragged": (_scene(3, n=200), 72, 40, CFG_P.replace(max_per_tile=32)),
+        "adversarial": (make_adversarial_scene(device="cpu"), 96, 64, CFG_P),
+    }[scene]
+    out = _kernel_vs_plain(cloud, w, h, device, cfg=cfg)
+    assert out.alpha.max().item() > 0.3
+    _backward_vs_plain(cloud, w, h, device, cfg=cfg)
+    _tiles_vs_full(cloud, w, h, device, cfg=cfg, n_shards=3,
+                   chunk=1 if scene == "adversarial" else 2)
+
+
+def test_mean16_flag_changes_the_kernels_output(device):
+    """The flag reaches the kernel: the same bins and fields composite
+    otherwise without pack_mean16, as the twin does."""
+    w, h = 64, 48
+    camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    splats = project_gaussians(_scene(0).to(device), camera.to(device), w, h,
+                               CFG_P)
+    bins = bin_splats(splats, w, h, CFG_P)
+    fields = pack_splat_fields(splats, CFG_P)
+    off = CFG_P.replace(pack_mean16=False)
+    a = raster_cuda.composite_image(fields, bins, w, h, CFG_P)
+    b = raster_cuda.composite_image(fields, bins, w, h, off)
+    want = composite_image_plain(fields, bins, w, h, off)
+    torch.cuda.synchronize()
+    assert not torch.equal(a.rgb, b.rgb)
+    assert (b.rgb - want.rgb).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("scene", ["random", "crowded", "adversarial",
+                                   "column-overrun"])
+def test_packed_anchor_kernels_match_plain(device, scene):
+    """C and D on packed anchor bins (d16 keys, bf16 fields, pack_grads in
+    the fold) against their plain versions: identical ordered lists, the
+    image rule, the gradient rule, D bitwise repeatable."""
+    from gaussian_splatting_web_tpu_torch.ops import anchor
+
+    pcfg = ACFG.replace(pack_fields=True, pack_grads=True, pack_mean16=True)
+    if scene == "column-overrun":
+        cfg = pcfg.replace(max_per_tile=64)
+        abins, _ = _anchor_vs_plain(_crowded_scene(seed=1, spread=0.25), 64,
+                                    48, device, cfg=cfg)
+        assert bool(anchor.split_overruns(abins, 4, 3, cfg).any())
+        return
+    if scene == "adversarial":
+        _anchor_vs_plain(make_adversarial_scene(device="cpu"), 96, 64,
+                         device, cfg=pcfg)
+        return
+    cloud = {"random": lambda: _scene(0), "crowded": _crowded_scene}[scene]()
+    abins, merge = _anchor_vs_plain(cloud, 64, 48, device, cfg=pcfg)
+    assert int(abins.sorted_depth.max()) <= 0xFFFF       # d16 keys
+    if scene == "crowded":
+        assert int(merge.k_used.max()) == anchor.k_cap(pcfg)
+
+
+def test_packed_render_and_step_launch_counts(device):
+    """render and a train step under CFG_P: A once per frame, A and B once
+    per step; with the packed anchor binning C, and C and D."""
+    from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
+        GaussianModel,
+    )
+    from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
+    from gaussian_splatting_web_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
+    with torch.no_grad():
+        target, _ = render(_scene(1).to(device), camera, 64, 48, CFG)
+    for cfg, mod in ((CFG_P, raster_cuda),
+                     (ACFG.replace(pack_fields=True, pack_grads=True),
+                      anchor_cuda)):
+        model = GaussianModel.from_cloud(_scene(0)).to(device)
+        state = TrainState(model, make_optimizer(model))
+        step = make_train_step(64, 48, cfg)
+        for m in (raster_cuda, anchor_cuda):
+            m.launches = m.launches_bwd = 0
+        with torch.no_grad():
+            img, _ = render(model.to_cloud(), camera, 64, 48, cfg)
+        losses = [float(step(state, camera, target)[1]) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.launches_bwd) == (3, 2)
+        assert all(np.isfinite(losses)) and torch.isfinite(img).all()

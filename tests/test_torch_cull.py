@@ -214,6 +214,24 @@ def test_cull_on_adversarial_scene():
     assert stats["missed"] == 0 and 0 < stats["culled"] < stats["steps"]
 
 
+def test_cull_on_adversarial_scene_mean16():
+    """The same under the JAX package's packed modes: with pack_mean16 the
+    kernels form the footprint mask from the quantized tile-local mean
+    (up to 1/64 px off the f32 one), so the mirror, which takes the
+    twin's quantized mean, still culls no passing step."""
+    w, h = 96, 64
+    cloud = make_adversarial_scene(device="cpu")
+    camera = default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
+    cfg = RenderConfig(depth_bits=19, tier_split=2, pack_fields=True,
+                       pack_mean16=True, pack_grads=True)
+    splats = project_gaussians(cloud, camera, w, h, cfg)
+    bins = bin_splats(splats, w, h, cfg)
+    assert int(bins.overflow) > 0
+    stats = raster_cuda.cull_stats(pack_splat_fields(splats, cfg), bins, w,
+                                   h, cfg)
+    assert stats["missed"] == 0 and 0 < stats["culled"] < stats["steps"]
+
+
 def test_tile_order_is_heavy_first_permutation():
     cfg = RenderConfig(max_per_tile=64)
     w, h = 96, 64

@@ -57,6 +57,9 @@ from gaussian_splatting_web_tpu_torch.train.trainer import TrainState
 
 # the JAX parallel tests' configuration and frame (tests/test_parallel.py)
 CFG = RenderConfig(max_dup=64, max_per_tile=64, tile_chunk=2)
+# the JAX package's default packed and tiered modes on the same caps
+CFG_P = CFG.replace(depth_bits=19, tier_split=2, pack_fields=True,
+                    pack_mean16=True, pack_grads=True)
 W, H = 64, 48
 WORLD = 4
 EYES = ((0, 0, -6), (0, 1, -6))
@@ -102,6 +105,9 @@ def _worker(rank, folder):
                                         _camera(EYES[0]), W, H, mesh, CFG)
             res[f"rgb_{name}"] = rgb.numpy()
             res[f"alpha_{name}"] = alpha.numpy()
+        rgb, alpha = render_sharded(_cloud(scenes["tile4"]), _camera(EYES[0]),
+                                    W, H, make_mesh(tile=4), CFG_P)
+        res["rgba_packed"] = torch.cat([rgb, alpha[..., None]], -1).numpy()
         mesh = make_mesh(**MESHES["data2xtile2"])
         model = GaussianModel.from_numpy(types.SimpleNamespace(**model0))
         state = TrainState(model, torch.optim.Adam(model.parameters(),
@@ -116,10 +122,10 @@ def _worker(rank, folder):
         dist.destroy_process_group()
 
 
-def _jax_config():
+def _jax_config(cfg=CFG):
     from gaussian_splatting_web_tpu.config import RenderConfig as JaxConfig
 
-    return JaxConfig(**dataclasses.asdict(CFG))
+    return JaxConfig(**dataclasses.asdict(cfg))
 
 
 @pytest.mark.parametrize("args", [(12, 8, 2), (12, 5, 1), (8160, 4, 32)])
@@ -265,8 +271,9 @@ def test_tile_ids_checks():
 
 
 def test_sharded_render_and_train_match_jax(tmp_path):
-    """4 gloo ranks: render_sharded on tile=4 and on data=2 × tile=2, and
-    one make_sharded_train_step step on data=2 × tile=2, against the JAX
+    """4 gloo ranks: render_sharded on tile=4 and on data=2 × tile=2 (and
+    on tile=4 under the packed and tiered modes, CFG_P), and one
+    make_sharded_train_step step on data=2 × tile=2, against the JAX
     package's on a 4-device mesh (the scenes of tests/test_parallel.py).
     The sharded images are held to the port's own single-device render at
     the JAX test's atol 1e-5, and to the JAX package's by the repo's image
@@ -313,6 +320,15 @@ def test_sharded_render_and_train_match_jax(tmp_path):
             img, aux = render(_cloud(scenes[name]), _camera(EYES[0]), W, H,
                               CFG)
         single[name] = torch.cat([img, aux["alpha"][..., None]], -1).numpy()
+    # the packed and tiered modes (CFG_P) on tile=4
+    rgb, alpha = sharded(make_random_cloud(40, seed=0, sh_degree=1), jcams[0],
+                         W, H, jax_make_mesh(devices, **MESHES["tile4"]),
+                         _jax_config(CFG_P))
+    want["packed"] = np.concatenate([rgb, alpha[..., None]], -1)
+    with torch.no_grad():
+        img, aux = render(_cloud(scenes["tile4"]), _camera(EYES[0]), W, H,
+                          CFG_P)
+    single["packed"] = torch.cat([img, aux["alpha"][..., None]], -1).numpy()
 
     jmodel = JaxModel.from_cloud(make_random_cloud(24, seed=3, sh_degree=0))
     render_t = jax.jit(jax_render, static_argnums=(2, 3, 4))
@@ -350,6 +366,9 @@ def test_sharded_render_and_train_match_jax(tmp_path):
             assert_images_close(rgba, want[name])
             np.testing.assert_allclose(rgba, single[name], atol=1e-5,
                                        err_msg=name)
+        assert_images_close(res["rgba_packed"], want["packed"])
+        np.testing.assert_allclose(res["rgba_packed"], single["packed"],
+                                   atol=1e-5, err_msg="packed")
         assert res["loss"] == pytest.approx(float(jloss), rel=1e-5)
         for f in PARAMS:
             np.testing.assert_allclose(
