@@ -132,6 +132,24 @@ packed anchor binning):
              "[20 packed] against the exact mode of this run" with the
              per-stage, step, fold and kernel times beside the exact mode's
 
+The bench (`bench_lib.run`, `cli bench`) and the native PLY unpack:
+
+ 21 bench    `bench_lib.run(emit_json=False)` on the 1M scene at 1080p in the
+             port's default exact mode: its gradient-parity gate (kernels A
+             and B against their plain twins on the same bins) ran and is
+             green, live pairs and overflow as phase 4 holds them, every
+             roofline share in (0, 100], and the forward median within 25%
+             of the median of 5 frames timed as phase 4 times them, just
+             before `run()`; the result dict on one line. The
+             gate again with the kernel path's gradient scaled: by 1.1 at
+             1080p and by 1.01 on 20,000 splats at 320x240 it must be red
+             (by 1.01 at 1080p it is printed: there its p99 stays under
+             the 1e-3 limit). `cli bench --width 1280 --height 720` as a subprocess
+             exits 0 with one JSON line holding parity_gate_ok true. Phase
+             4's scene written with `write_ply` reads back through
+             `read_ply(use_native=True)` and `(use_native=False)` equal bit
+             for bit (host clock, 3 reads each)
+
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
 residual log-transmittance agrees to 1e-4. Gradient rule
@@ -148,7 +166,8 @@ one-block tile-schedule kernel), the time in the JSON line;
 CUDA events, median of 7; the plain twins are timed that way too. C and D
 are timed with the same helpers.
 
-Each kernel's bound is the larger of its bytes (each input read once, each
+Each kernel's bound (`bench_lib.work`, `bound`, `raster_bytes`, shared
+with the bench's roofline rows) is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and the operations this run's data
 needs over the card's peak: FP32 operations over 67 TFLOP/s, and exp/
 log1p/reciprocal/sqrt over the special-function units (16 per SM per
@@ -192,15 +211,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gaussian_splatting_web_tpu_torch import bench_lib
 from gaussian_splatting_web_tpu_torch.bench_lib import (
     GRAD_EXTRA,
+    bound,
     grad_parity,
     grad_parity_ok,
     make_adversarial_scene,
     make_scene,
     orbit_camera,
+    raster_bytes,
     step_parity,
     unsharded_reference,
+    work,
 )
 from gaussian_splatting_web_tpu_torch.bench_lib import IMAGE_ATOL as ATOL
 from gaussian_splatting_web_tpu_torch.bench_lib import (
@@ -313,27 +336,6 @@ KERNELS = {
         "backward_pair_grads(tile_ids=)"),
 }
 SOURCES = ("raster_fwd", "raster_bwd", "anchor_fwd", "anchor_bwd")
-# peaks of one H100 SXM (NVIDIA data sheet; SFU: 16 results per SM per
-# clock at the 1.98 GHz boost clock)
-HBM_BYTES_S, FP32_FLOPS_S, SFU_OPS_S = 3.35e12, 67e12, 132 * 16 * 1.98e9
-# operations per pair-pixel step, read off the kernels' inner loops: every
-# step evaluates power (5 mul + 5 add) and compares it; a step past the
-# cutoff adds, in A, fmin, the log-T add and compare, w, four colour/alpha
-# accumulations (12 FP32) and exp, log1p, exp (3 SFU); in B, fmin, the
-# log-T subtract, w, r (3 fma), dα, the suffix, dpow, nine moment products
-# and their nine reduction adds (35 FP32) and exp, log1p, exp and the
-# reciprocal of 1 − α (4 SFU)
-STEP_FP32 = 11
-PASS_FP32 = {"raster_fwd": 12, "raster_bwd": 35, "anchor_fwd": 12,
-             "anchor_bwd": 35, "raster_fwd_tiles": 12,
-             "raster_bwd_tiles": 35}
-PASS_SFU = {"raster_fwd": 3, "raster_bwd": 4, "anchor_fwd": 3,
-            "anchor_bwd": 4, "raster_fwd_tiles": 3, "raster_bwd_tiles": 4}
-# one footprint test (csrc/footprint.cuh): 27 mul, 22 add, 36 compares and
-# 6 abs in FP32; two divisions and two square roots on the SFUs
-FOOT_FP32, FOOT_SFU = 91, 4
-
-
 class SmokeFailure(RuntimeError):
     pass
 
@@ -433,65 +435,6 @@ def small_scenes(dev):
              -6.0)]
 
 
-def work(fields, bins, comp, w, h, cfg, tile_ids=None):
-    """Pair-pixel steps of this frame (of the real tiles of `tile_ids`,
-    default all), for A and B: `steps` walked, of which `passed` pass the
-    cutoff, and the (pair, tile)s some pixel of the tile walks to, `pairs`.
-    A walks each pixel up to and including its early-exit pair (the whole
-    segment if it never saturates); B walks each pixel up to its last
-    contributing pair."""
-    gx, gy = cfg.grid_size(w, h)
-    ts = cfg.tile_size
-    dev = fields.device
-    if tile_ids is None:
-        tile_ids = torch.arange(gx * gy, device=dev)
-    tile_ids = tile_ids[tile_ids < gx * gy].long()
-    inside = rasterize.tile_major(torch.ones((h, w, 1), device=dev), gx, gy,
-                                  ts)[tile_ids, :, 0] > 0         # [T, P]
-    last = rasterize.tile_major(comp.last_idx[..., None], gx, gy, ts,
-                                fill=-1)[tile_ids, :, 0]
-    log_eps = math.log(cfg.transmittance_eps)
-    totals = torch.zeros(6, dtype=torch.float64, device=dev)
-    starts, counts, spans = rasterize._chunks(bins, tile_ids, cfg)
-    with torch.no_grad():
-        for sl, k_len in spans:
-            seg = rasterize._segments(fields, bins, tile_ids, starts, counts,
-                                      sl, k_len, gx, cfg)
-            live = seg.live[..., None] & inside[sl][:, None, :]
-            passed = seg.alpha > 0
-            incl = torch.cumsum(torch.log1p(-seg.alpha), dim=1)
-            # steps up to the first violator, inclusive
-            walked = torch.cumsum((incl < log_eps).to(torch.int32), 1)
-            walked = (walked - (incl < log_eps).to(torch.int32)) == 0
-            k = torch.arange(k_len, device=dev)
-            to_last = k[None, :, None] <= last[sl][:, None, :]
-            a = live & walked
-            b = live & to_last
-            totals += torch.stack([
-                a.sum(), (a & passed).sum(), a.any(-1).sum(), b.sum(),
-                (b & passed).sum(), b.any(-1).sum()]).double()
-    v = [int(x) for x in totals.tolist()]
-    return {"A": dict(steps=v[0], passed=v[1], pairs=v[2]),
-            "B": dict(steps=v[3], passed=v[4], pairs=v[5])}
-
-
-def bound(name, w, nbytes):
-    """(bound_ms, bound_by, step_bound_ms) for the work `w` (one kernel's
-    entry of `work`) and `nbytes`: the bound counts the passing steps at
-    full cost and one footprint test per pair; the step bound counts a
-    power evaluation at every walked step."""
-    flops = (w["passed"] * (STEP_FP32 + PASS_FP32[name])
-             + w["pairs"] * FOOT_FP32)
-    sfu = w["passed"] * PASS_SFU[name] + w["pairs"] * FOOT_SFU
-    ops_s = max(flops / FP32_FLOPS_S, sfu / SFU_OPS_S)
-    bytes_s = nbytes / HBM_BYTES_S
-    step_flops = w["steps"] * STEP_FP32 + w["passed"] * PASS_FP32[name]
-    step_s = max(step_flops / FP32_FLOPS_S,
-                 w["passed"] * PASS_SFU[name] / SFU_OPS_S, bytes_s)
-    return (max(ops_s, bytes_s) * 1e3,
-            "bytes" if bytes_s >= ops_s else "operations", step_s * 1e3)
-
-
 def work_line(w, nbytes, bound_ms, bound_by, step_ms, passing="past the "
               "cutoff"):
     return (f"pair-pixel steps {w['steps']} ({w['passed']} {passing}), "
@@ -584,9 +527,7 @@ def phase_kernel(dev, cloud, cfg, label="2 kernel"):
         lambda: composite_image_plain(fields, bins, W, H, cfg), 7, warmup=1)
     findings["1080p"] = full
     steps = work(fields, bins, got, W, H, cfg)
-    t = cfg.num_tiles(W, H)
-    nbytes = (fields.numel() * 4 + bins.sorted_gidx.numel() * 4 + t * 8
-              + H * W * 6 * 4)
+    nbytes = raster_bytes(fields, bins, W, H, cfg)
     bound_ms, bound_by, step_ms = bound("raster_fwd", steps["A"], nbytes)
     print(f"[{label}] kernel A vs plain twin: "
           + "; ".join(f"{k}: max_abs_err {v['max_abs_err']:.3e}, "
@@ -652,9 +593,7 @@ def phase_backward(dev, cfg, full, label="3 bwd"):
         fields, bins, W, H, cfg, fwd, d_rgb, d_alpha), 7, warmup=1)
     n = fields.shape[0]
     fold_ms = median_ms(lambda: fold_pair_grads(dpairs, bins, n, cfg), 7)
-    t = cfg.num_tiles(W, H)
-    nbytes = (fields.numel() * 4 + bins.sorted_gidx.numel() * 4 + t * 8
-              + H * W * 6 * 4 + dpairs.numel() * 4)
+    nbytes = raster_bytes(fields, bins, W, H, cfg, dpairs)
     bound_ms, bound_by, step_ms = bound("raster_bwd", steps["B"], nbytes)
     print(f"[{label}] kernel B vs plain twin after the fold, bitwise "
           "repeatable on each scene: "
@@ -1200,6 +1139,100 @@ def phase_packed(dev, cloud, frame, exact):
           f"{afwd['plain_ms']:.3f}, D {abwd['plain_ms']:.3f} ms")
 
 
+def mutant_gate(cloud, camera, w, h, scale):
+    """`bench_lib._grad_parity` with the kernel path's gradient scaled by
+    `scale` → its stats."""
+    real = bench_lib._kernel_grads
+
+    def scaled(*args):
+        loss, grads = real(*args)
+        return loss, [g * scale for g in grads]
+
+    bench_lib._kernel_grads = scaled
+    try:
+        return bench_lib._grad_parity(cloud, camera, w, h, RenderConfig())
+    finally:
+        bench_lib._kernel_grads = real
+
+
+def phase_bench(dev, cloud):
+    """Phase 21: the bench on the card, its gate and the gate's mutant,
+    `cli bench` at 720p, and the native PLY read against the NumPy one.
+    The bench's forward median is held against phase 4's frame timing
+    taken again just before it: the host's speed drifts between phases a
+    minute apart (on one H100, phase 4's median read 8.7-12.5 ms across
+    runs of one tree)."""
+    with torch.no_grad():
+        frame_ms = statistics.median(timed_frames(
+            cloud, bench_camera(W, H, dev), RenderConfig(), 5)[3])
+    result = bench_lib.run(emit_json=False)
+    check(result["parity_gate_ok"] is True,
+          f"bench: the gradient-parity gate is not green: {result}")
+    pairs, over = result["live_pairs"], result["overflow"]
+    check(abs(pairs - CPU_PAIRS) <= 1e-3 * CPU_PAIRS
+          and abs(over - CPU_OVERFLOW) <= 5,
+          f"bench: live pairs {pairs}, overflow {over} vs CPU "
+          f"{CPU_PAIRS}, {CPU_OVERFLOW}")
+    shares = {"forward": result["pct_roofline_forward"],
+              "fwd+bwd": result["pct_roofline_fwd_bwd"],
+              **{k: v["pct_roofline"] for k, v in result["roofline"].items()}}
+    check(all(0 < v <= 100 for v in shares.values()),
+          f"bench: roofline shares outside (0, 100]: {shares}")
+    off = abs(result["forward_ms"] - frame_ms) / frame_ms
+    check(off <= 0.25, f"bench: forward median {result['forward_ms']:.3f} "
+          f"ms vs phase 4's frame timing, median {frame_ms:.3f} ms")
+    print(f"[21 bench] frame timed as in phase 4, just before run(): "
+          f"median {frame_ms:.3f} ms; run(): {json.dumps(result)}")
+
+    # the gate with the kernel path's gradient scaled: x1.01 at 1M splats
+    # and 1080p is printed (its p99 is 0.01 x the p99 of |g| / max|g|,
+    # below the 1e-3 limit there); x1.1 there and x1.01 on 20,000 splats
+    # at 320x240 must turn it red
+    small = make_scene(20_000, device=dev)
+    mutants = {name: mutant_gate(scene, bench_camera(w, h, dev), w, h, k)
+               for name, scene, w, h, k in (
+                   ("x1.01 1080p", cloud, W, H, 1.01),
+                   ("x1.1 1080p", cloud, W, H, 1.1),
+                   ("x1.01 320x240", small, 320, 240, 1.01))}
+    for name in ("x1.1 1080p", "x1.01 320x240"):
+        check(not mutants[name]["ok"], f"bench: the gate stays green with "
+              f"the kernel path's gradient {name}: {mutants[name]}")
+
+    proc, dt = run_cli(["bench", "--width", "1280", "--height", "720"],
+                       "bench")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"cli bench printed {lines}")
+    line = json.loads(lines[0])
+    check(line["parity_gate_ok"] is True and line["metric"]
+          == "forward_render_720p", f"cli bench printed {lines[0]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "scene1m.ply")
+        write_ply(cloud, ply)
+        reads, times = {}, {}
+        for native in (True, False):
+            t = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                reads[native] = read_ply(ply, device="cpu",
+                                         use_native=native)
+                t.append((time.perf_counter() - t0) * 1e3)
+            times[native] = statistics.median(t)
+        size = os.path.getsize(ply)
+    for f in ("xyz", "log_scale", "quat", "opacity_logit", "sh"):
+        check(torch.equal(getattr(reads[True], f), getattr(reads[False], f)),
+              f"native PLY read: {f} differs from the NumPy read")
+    print("[21 bench] the gate with the kernel path's gradient scaled: "
+          + "; ".join(f"{k}: p99 {v['p99']:.2e}, max {v['max']:.2e}, >1% "
+                      f"{v['nbig']}/{v['n']}, "
+                      f"{'green' if v['ok'] else 'red'}"
+                      for k, v in mutants.items())
+          + f"; cli bench 1280x720: {lines[0]}; process {dt:.1f} s; read_ply "
+          f"of the {N_SCENE}-splat PLY ({size} bytes), native and NumPy "
+          f"equal bit for bit: native {times[True]:.1f} ms, NumPy "
+          f"{times[False]:.1f} ms (host clock, medians of 3)")
+
+
 def phase_eval(capture):
     """Phase 17: `cli eval --device cuda` on phase 8's views and trained
     PLY prints its JSON line with a finite PSNR."""
@@ -1386,6 +1419,20 @@ def phase_anchor_backward(dev, cfg, full, label="11 anchor"):
             "fold_ms": fold_ms}
 
 
+def timed_frames(cloud, camera, cfg, frames):
+    """`render` + `post_process` at W x H, each frame between synchronizes
+    on the host clock → (img, aux, rgba of the last, ms per frame)."""
+    times = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, aux = render(cloud, camera, W, H, cfg)
+        rgba = post_process(img, aux["alpha"], cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return img, aux, rgba, times
+
+
 def phase_render(dev, cloud, cfg, frames=5, ref=None, label=None,
                  expect=None):
     """`render` for a few frames with cfg's binning; `ref` is the dup
@@ -1423,13 +1470,8 @@ def phase_render(dev, cloud, cfg, frames=5, ref=None, label=None,
             stages["composite"].append((t3 - t2) * 1e3)
 
         reset_counts()
-        for _ in range(frames):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            img, aux = render(cloud, camera, W, H, cfg)
-            rgba = post_process(img, aux["alpha"], cfg)
-            torch.cuda.synchronize()
-            stages["frame"].append((time.perf_counter() - t0) * 1e3)
+        img, aux, rgba, stages["frame"] = timed_frames(cloud, camera, cfg,
+                                                       frames)
         counts = launch_counts()
     check(counts == {k: frames * (k == kernel) for k in counts},
           f"render launched {counts} in {frames} frames")
@@ -1730,6 +1772,7 @@ def main():
     phase_packed(dev, cloud, frame, {
         "dup": med, "anchor": med_a, "step": step_ms, "step_a": step_a,
         "A": fwd, "B": bwd, "C": afwd, "D": abwd, "E": tiles})
+    phase_bench(dev, cloud)
     del cloud
     phase_cli_render()
     with tempfile.TemporaryDirectory() as capture_dir:

@@ -1,14 +1,18 @@
-"""Command-line interface of the port (the JAX package's `cli.py`; `bench`
-is not ported yet, ROADMAP §1 item 7):
+"""Command-line interface of the port (the JAX package's `cli.py`):
 
   python -m gaussian_splatting_web_tpu_torch.cli info   --ply scene.ply
   python -m gaussian_splatting_web_tpu_torch.cli render --ply scene.ply [--cameras cam.json] --out out/ [--device cuda] [--gaussian-sharded[=ring|banded]]
   python -m gaussian_splatting_web_tpu_torch.cli serve  --ply scene.ply --port 8090 [--device cuda]
   python -m gaussian_splatting_web_tpu_torch.cli train  --cameras cameras.json --images images/ [--ply init.ply] --out trained.ply [--checkpoint dir [--restarts N]] [--multihost] [--device cuda]
   python -m gaussian_splatting_web_tpu_torch.cli eval   --ply trained.ply --cameras cameras.json --images images/ [--device cuda]
+  python -m gaussian_splatting_web_tpu_torch.cli bench  [--ply scene.ply] [--width 1280 --height 720] [--device cuda] [--depth-bits 19 ...]
 
 `eval` prints PSNR and SSIM per view on stderr and one JSON line
-{"views", "psnr_mean", "ssim_mean"} on stdout.
+{"views", "psnr_mean", "ssim_mean"} on stdout. `bench` (`bench_lib.run`,
+on the 1M-splat synthetic scene without `--ply`) prints its details on
+stderr and one JSON line {"metric", "value", "unit", "vs_baseline",
+"parity_gate_ok"} on stdout; it measures the config the shared render
+flags give, and exits 1 when the gradient-parity gate is red.
 
 `--device` defaults to `cuda`; a CUDA device that is not there is an
 error, never a silent switch to the CPU. `render --gaussian-sharded` and
@@ -316,6 +320,16 @@ def cmd_eval(args):
     }))
 
 
+def cmd_bench(args):
+    from . import bench_lib
+
+    _device(args)
+    result = bench_lib.run(args.ply, args.width, args.height,
+                           device=args.device, config=_config(args))
+    if result["parity_gate_ok"] is False:
+        sys.exit(1)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gaussian_splatting_web_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -364,6 +378,11 @@ def main(argv=None):
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=8090)
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("bench", help="throughput benchmark and the "
+                        "kernels' gradient-parity gate")
+    common(sp, ply_required=False)
+    sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("train", help="train a scene from posed images")
     common(sp, ply_required=False)

@@ -35,6 +35,20 @@ def projection_inria(znear: float, zfar: float, fov_x: float, fov_y: float) -> n
     return P
 
 
+def perspective_wgpu(fov_y: float, aspect: float, znear: float,
+                     zfar: float) -> np.ndarray:
+    """wgpu-matrix `mat4.perspective` (the reference's orbit camera,
+    camera.ts:106,245): -z forward, NDC z in [0, 1]."""
+    f = 1.0 / math.tan(fov_y / 2)
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = f / aspect
+    P[1, 1] = f
+    P[2, 2] = zfar / (znear - zfar)
+    P[2, 3] = zfar * znear / (znear - zfar)
+    P[3, 2] = -1.0
+    return P
+
+
 def look_at(eye: Sequence[float], center: Sequence[float], up: Sequence[float]) -> np.ndarray:
     """Right-handed look-at view matrix, -z forward (ref camera.ts:114)."""
     eye = np.asarray(eye, dtype=np.float64)
@@ -58,6 +72,10 @@ def look_at(eye: Sequence[float], center: Sequence[float], up: Sequence[float]) 
 def focal2fov(focal: float, pixels: float) -> float:
     """ref camera.ts:463-465."""
     return 2 * math.atan(pixels / (2 * focal))
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
 
 
 def world_to_cam_from_rt(R_c2w: np.ndarray, cam_center: Sequence[float]) -> np.ndarray:

@@ -5,7 +5,8 @@ types.py`): structure-of-arrays, parameters in raw pre-activation form
 (log-scale, opacity logit). `from_numpy` takes the JAX package's arrays as
 `numpy_cloud` gives them (any object with the five attributes), so one
 scene drives both packages; `to_numpy` gives them back as keyword
-arguments of the JAX constructors.
+arguments of the JAX constructors, and `numpy_cloud` is the same under
+the JAX package's name.
 """
 
 from __future__ import annotations
@@ -78,9 +79,54 @@ class GaussianCloud:
                              opacity_logit=self.opacity_logit.to(bf),
                              sh=self.sh.to(bf))
 
+    def astype(self, dtype) -> "GaussianCloud":
+        """Every field cast to `dtype`, positions too (JAX `core/types.py:
+        64-71`); `with_storage_dtype` is the policy that keeps xyz f32."""
+        return GaussianCloud(**{f: getattr(self, f).to(dtype)
+                                for f in _CLOUD_FIELDS})
+
     def bbox(self):
         """(min, max) scene bounding box (ref: src/ply.ts:276-285)."""
         return self.xyz.amin(dim=0), self.xyz.amax(dim=0)
+
+    def reindex(self, order) -> "GaussianCloud":
+        """Every per-gaussian row reordered by `order` (an index array or
+        tensor). Rendering sorts by depth per frame, so any permutation
+        renders the same image."""
+        order = torch.as_tensor(order, device=self.device)
+        return GaussianCloud(**{f: getattr(self, f)[order]
+                                for f in _CLOUD_FIELDS})
+
+    def spatial_sort(self) -> "GaussianCloud":
+        """The cloud in Morton order (one host-side sort, then the rows
+        reordered on the cloud's device)."""
+        return self.reindex(morton_order(self.xyz.detach().cpu().numpy()))
+
+
+def morton_order(xyz: np.ndarray) -> np.ndarray:
+    """Stable argsort of the 30-bit Morton (Z-order) codes of the positions
+    quantized to 10 bits per axis over their bounding box."""
+    p = np.nan_to_num(np.asarray(xyz, dtype=np.float64))
+    lo, hi = p.min(axis=0), p.max(axis=0)
+    q = ((p - lo) / np.maximum(hi - lo, 1e-12) * 1023.0).astype(np.uint64)
+
+    def spread(v):  # interleave 10 bits with two zero bits each
+        v &= np.uint64(0x3FF)
+        v = (v | (v << np.uint64(16))) & np.uint64(0x030000FF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0x0300F00F)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x030C30C3)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x09249249)
+        return v
+
+    code = (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
+            | (spread(q[:, 2]) << np.uint64(2)))
+    return np.argsort(code, kind="stable")
+
+
+def numpy_cloud(cloud: GaussianCloud) -> dict:
+    """Device → host copy of every field, as keyword arguments of the JAX
+    package's GaussianCloud (`GaussianCloud.to_numpy`)."""
+    return cloud.to_numpy()
 
 
 @dataclasses.dataclass
@@ -107,3 +153,13 @@ class CameraParams:
     def to(self, device) -> "CameraParams":
         return CameraParams(**{f: getattr(self, f).to(device)
                                for f in _CAMERA_FIELDS})
+
+    @property
+    def view_proj(self) -> torch.Tensor:
+        return self.proj @ self.view
+
+
+def stack_cameras(cams) -> CameraParams:
+    """A list of CameraParams stacked field by field on a leading axis."""
+    return CameraParams(**{f: torch.stack([getattr(c, f) for c in cams])
+                           for f in _CAMERA_FIELDS})

@@ -1,6 +1,7 @@
-"""Vectorized PLY reader/writer for 3D Gaussian splat checkpoints, the
-NumPy path of the JAX package's `io/ply.py` (the `native/plyio` fast path
-is ROADMAP §1 item 9).
+"""Vectorized PLY reader/writer for 3D Gaussian splat checkpoints (the JAX
+package's `io/ply.py`): the record body is unpacked by the threaded C++
+pass of `native/plyio.py` (csrc/plyio.cpp) or by a NumPy structured dtype,
+with the same bits.
 
 Semantics reproduced from the reference (src/ply.ts): binary little-endian
 `element vertex N` bodies, uchar properties scaled by 1/255, SH degree from
@@ -127,13 +128,15 @@ def read_ply(
     path_or_bytes,
     progress: Optional[Callable[[int, int], None]] = None,
     device="cuda",
+    use_native: Optional[bool] = None,
 ) -> GaussianCloud:
     """Read an INRIA-style Gaussian-splat PLY (path, bytes or file-like)
     into a GaussianCloud on `device`. `progress(bytes_read, total)` is
-    called while a path is read."""
+    called while a path is read. `use_native` True requires the C++ unpack
+    (raising if it cannot build), False forbids it, None tries it and
+    falls back to NumPy."""
     data = _read_bytes(path_or_bytes, progress)
     header = _parse_header(data)
-    props = dict(header.properties)
     dtype = np.dtype([(name, _PLY_TYPES[ptype])
                       for name, ptype in header.properties])
     n = header.vertex_count
@@ -142,13 +145,26 @@ def read_ply(
         raise ValueError(
             f"PLY body truncated: need {n * dtype.itemsize} bytes, got {len(body)}"
         )
-    rec = np.frombuffer(body, dtype=dtype, count=n)
+    fields = None
+    if use_native is not False:
+        # host code, not a device kernel: the JAX package's try-then-NumPy
+        # rule is kept as is (the two paths give the same bits)
+        try:
+            from ..native import plyio
 
-    def col(name):
-        v = rec[name].astype(np.float32)
-        if props[name] in ("uchar", "uint8"):
-            v = v / 255.0  # ply.ts:122
-        return v
+            fields = plyio.unpack_fields(body, header.properties, n)
+        except (OSError, RuntimeError):
+            if use_native:
+                raise
+    if fields is None:
+        rec = np.frombuffer(body, dtype=dtype, count=n)
+        fields = {}
+        for name, ptype in header.properties:
+            v = rec[name].astype(np.float32)
+            if ptype in ("uchar", "uint8"):
+                v = v / 255.0  # ply.ts:122
+            fields[name] = v
+    col = fields.__getitem__
 
     xyz = np.stack([col(c) for c in ("x", "y", "z")], axis=1)
     log_scale = np.stack([col(f"scale_{i}") for i in range(3)], axis=1)

@@ -130,6 +130,15 @@ def float_to_sortable_uint(f: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, u ^ 0xFFFFFFFF, u ^ 0x80000000)
 
 
+def depth_sort_indices(depth: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """Global front-to-back order by view depth (the reference's whole
+    per-frame sort, renderer.ts:301-315): a stable argsort, invalid splats
+    last. `jnp.argsort` is stable too, so ties order alike."""
+    key = torch.where(valid, depth, torch.full_like(depth, float("inf")))
+    return torch.sort(key, stable=True).indices
+
+
 def _cutoff_tau(opacity: torch.Tensor, config: RenderConfig) -> torch.Tensor:
     """Level-set threshold τ: alpha ≥ cutoff ⟺ ½ dᵀΣ⁻¹d ≤ τ."""
     return torch.log(

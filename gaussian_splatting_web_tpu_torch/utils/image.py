@@ -1,6 +1,7 @@
 """PNG encode and decode with the standard library's zlib (no imaging
 package needed): the encoder of the JAX package's
-`utils/image.py::_png_bytes`, and a decoder for the training images."""
+`utils/image.py::_png_bytes`, and a decoder for the training images.
+`read_image` reads any format through pillow, imported when called."""
 
 from __future__ import annotations
 
@@ -126,3 +127,12 @@ def read_png(path_or_bytes) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     rows = raw[:h * (1 + w * channels)].reshape(h, 1 + w * channels)
     return _unfilter(rows, channels).reshape(h, w, channels)
+
+
+def read_image(path: str) -> np.ndarray:
+    """Read an image to float32 [0, 1] [H, W, 3] (JAX `utils/image.py::
+    read_image`)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0

@@ -186,6 +186,9 @@ def test_port_imports_no_jax():
         "gaussian_splatting_web_tpu_torch.ops.anchor",
         "gaussian_splatting_web_tpu_torch.ops.cuda.anchor",
         "gaussian_splatting_web_tpu_torch.models.gaussian_model",
+        "gaussian_splatting_web_tpu_torch._native_build",
+        "gaussian_splatting_web_tpu_torch.native.plyio",
+        "gaussian_splatting_web_tpu_torch.ops",
         "gaussian_splatting_web_tpu_torch.ops.composite",
         "gaussian_splatting_web_tpu_torch.ops.cuda.build",
         "gaussian_splatting_web_tpu_torch.ops.cuda.raster",
@@ -202,7 +205,9 @@ def test_port_imports_no_jax():
         "gaussian_splatting_web_tpu_torch.train.loss",
         "gaussian_splatting_web_tpu_torch.train.train_loop",
         "gaussian_splatting_web_tpu_torch.train.trainer",
+        "gaussian_splatting_web_tpu_torch.utils",
         "gaussian_splatting_web_tpu_torch.utils.image",
+        "gaussian_splatting_web_tpu_torch.utils.metrics",
         "gaussian_splatting_web_tpu_torch.viewer.orbit",
         "gaussian_splatting_web_tpu_torch.viewer.server",
     ]

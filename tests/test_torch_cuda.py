@@ -3,7 +3,8 @@
 schedules, and the launches of a render and of a training step; A's and B's
 tile-list entries (E) against the full-frame kernels and the list twins;
 the same under the JAX package's packed modes (CFG_P: A-E with the mean16
-flag on tiered bins, C and D on packed anchor bins).
+flag on tiered bins, C and D on packed anchor bins); the bench's gate and
+its scaled-gradient mutant, and the PLY unpack built on the machine.
 
 Marked `gpu`: every test skips without a CUDA device. The file imports
 neither jax nor tests/conftest.py, so it runs on the machine with the card:
@@ -688,3 +689,41 @@ def test_packed_render_and_step_launch_counts(device):
         torch.cuda.synchronize()
         assert (mod.launches, mod.launches_bwd) == (3, 2)
         assert all(np.isfinite(losses)) and torch.isfinite(img).all()
+
+
+def test_bench_gate_green_and_scaled_kernel_red(device, monkeypatch):
+    """`bench_lib.run` on the card: the gate (kernels A and B against their
+    twins on the same bins) is green, every roofline share is in (0, 100],
+    and with the kernel path's gradient scaled by 1.01 the gate is red."""
+    from gaussian_splatting_web_tpu_torch import bench_lib
+
+    result = bench_lib.run(n_synthetic=20_000, width=320, height=240,
+                           emit_json=False)
+    assert result["parity_gate_ok"] is True, result
+    assert result["device"] == torch.cuda.get_device_name(0)
+    assert all(0 < row["pct_roofline"] <= 100
+               for row in result["roofline"].values())
+    real = bench_lib._kernel_grads
+
+    def scaled(*args):
+        loss, grads = real(*args)
+        return loss, [g * 1.01 for g in grads]
+
+    monkeypatch.setattr(bench_lib, "_kernel_grads", scaled)
+    camera = cam.default_camera(320, 240, eye=(0, 0, -8), center=(0, 0, 0))
+    bad = bench_lib._grad_parity(make_scene(20_000, device=device),
+                                 camera.to(device), 320, 240, RenderConfig())
+    assert not bad["ok"], bad
+
+
+def test_native_ply_read_equals_numpy(device, tmp_path):
+    """The PLY unpack built on this machine (csrc/plyio.cpp) reads the same
+    bits as the NumPy path."""
+    from gaussian_splatting_web_tpu_torch.io.ply import read_ply, write_ply
+
+    path = str(tmp_path / "scene.ply")
+    write_ply(make_scene(10_000, seed=2, device="cpu"), path)
+    native = read_ply(path, device=device, use_native=True)
+    plain = read_ply(path, device=device, use_native=False)
+    for f in FIELDS:
+        assert torch.equal(getattr(native, f), getattr(plain, f)), f

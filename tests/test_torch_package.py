@@ -1,6 +1,7 @@
 """Packaging of the port: an installed copy must carry every kernel source
-and header, since the kernels are built from them at first use
-(`ops/cuda/build.py` reads `csrc/` from the package directory)."""
+and header and the host C++ source of the PLY unpack, since they are built
+at first use (`ops/cuda/build.py` reads `csrc/` from the package
+directory)."""
 
 import fnmatch
 import os
@@ -18,6 +19,7 @@ def test_every_kernel_source_is_package_data():
                    for d, _, names in os.walk(csrc) for n in names)
     assert any(f.endswith(".cu") for f in files)
     assert any(f.endswith(".cuh") for f in files)
+    assert any(f.endswith(".cpp") for f in files)      # the PLY unpack
     missing = [f for f in files
                if not any(fnmatch.fnmatch(f, g) for g in globs)]
     assert not missing, f"not shipped as package data: {missing}"
