@@ -54,6 +54,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import RenderConfig
+from ..utils import tracing
 from .projection import ProjectedSplats
 from .rasterize import (
     GRAD_ROW,
@@ -146,6 +147,7 @@ def depth16(depth: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     return torch.where(live, d, 0.0).to(torch.int64)
 
 
+@tracing.spanned("binning")
 @torch.no_grad()
 def bin_splats_anchor(splats: ProjectedSplats, width: int, height: int,
                       config: RenderConfig) -> AnchorBins:

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ...config import RenderConfig
+from ...utils import tracing
 from .. import rasterize
 from ..rasterize import (
     FIELD_ROW,
@@ -319,6 +320,7 @@ class CompositeFn(torch.autograd.Function):
         return tuple(out)
 
     @staticmethod
+    @tracing.spanned("composite_bwd")
     def backward(ctx, d_rgb, d_alpha, _d_log_t, _d_last):
         fields, final_log_t, last_idx = ctx.saved_tensors
         bins, width, height, config = ctx.frame

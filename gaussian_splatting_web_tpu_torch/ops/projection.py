@@ -17,6 +17,7 @@ import torch
 
 from ..config import RenderConfig
 from ..core.types import CameraParams, GaussianCloud
+from ..utils import tracing
 from .sh import eval_sh
 
 
@@ -77,6 +78,7 @@ def ndc2pix(v: torch.Tensor, size: float) -> torch.Tensor:
     return ((v + 1.0) * size - 1.0) * 0.5
 
 
+@tracing.spanned("projection")
 def project_gaussians(
     cloud: GaussianCloud,
     camera: CameraParams,

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..config import RenderConfig
 from ..core.types import CameraParams, GaussianCloud
+from ..utils import tracing
 from .projection import ProjectedSplats, project_gaussians
 from .sort import (
     TileBins,
@@ -346,6 +347,7 @@ def composite_tiles_backward_plain(
     return out
 
 
+@tracing.spanned("fold")
 def fold_pair_grads(dpairs: torch.Tensor, bins: TileBins, n: int,
                     config: RenderConfig | None = None) -> torch.Tensor:
     """Sum the sorted pair gradients [M, 9] back onto the splats → [N, 9]
@@ -421,8 +423,10 @@ def rasterize_tiles(
     tensors, the plain twins for CPU tensors."""
     from .cuda.raster import composite_image
 
-    fields = highlight_selected(pack_splat_fields(splats, config), config)
-    return composite_image(fields, bins, width, height, config)
+    with tracing.span("composite"):
+        fields = highlight_selected(pack_splat_fields(splats, config),
+                                    config)
+        return composite_image(fields, bins, width, height, config)
 
 
 def composite_tiles_auto(splats: ProjectedSplats, tile_ids: torch.Tensor,
@@ -472,14 +476,16 @@ def bin_and_composite(splats: ProjectedSplats, width: int, height: int,
         from .cuda.anchor import composite_image_anchor
 
         bins = bin_splats_anchor(splats, width, height, config)
-        fields = highlight_selected(pack_splat_fields(splats, config),
-                                    config)
-        return composite_image_anchor(fields, bins, width, height,
-                                      config), bins
+        with tracing.span("composite"):
+            fields = highlight_selected(pack_splat_fields(splats, config),
+                                        config)
+            return composite_image_anchor(fields, bins, width, height,
+                                          config), bins
     bins = bin_splats(splats, width, height, config)
     return rasterize_tiles(splats, bins, width, height, config), bins
 
 
+@tracing.spanned("render")
 def render_impl(
     cloud: GaussianCloud,
     camera: CameraParams,
@@ -498,9 +504,10 @@ def render_impl(
     splats = project_gaussians(cloud, camera, width, height, config)
     out, bins = bin_and_composite(splats, width, height, config)
 
-    bg = torch.tensor(config.background, dtype=out.rgb.dtype,
-                      device=out.rgb.device)
-    img = out.rgb + (1.0 - out.alpha[..., None]) * bg
+    with tracing.span("composite"):
+        bg = torch.tensor(config.background, dtype=out.rgb.dtype,
+                          device=out.rgb.device)
+        img = out.rgb + (1.0 - out.alpha[..., None]) * bg
     aux = {
         "alpha": out.alpha,
         "num_pairs": bins.num_pairs,

@@ -38,6 +38,7 @@ from typing import Tuple
 import torch
 
 from ..config import RenderConfig
+from ..utils import tracing
 from .projection import ProjectedSplats
 
 TAU_SLACK = 1e-3      # slack on the cull's level-set threshold (JAX sort.py)
@@ -271,6 +272,7 @@ def sort_key_bits(num_tiles: int, config: RenderConfig) -> int:
     return max(min(config.depth_bits, 32 - tile_bits), 0)
 
 
+@tracing.spanned("binning")
 @torch.no_grad()
 def bin_splats(
     splats: ProjectedSplats,
@@ -354,7 +356,8 @@ def bin_splats(
 
     tile_count = torch.bincount(sorted_key >> shift, minlength=num_tiles)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
-    num_pairs = live_slot.new_tensor(live_slot.shape[0])
+    kept = live_slot.shape[0]
+    num_pairs = live_slot.new_tensor(kept)
 
     if config.gather_cap_factor > 0:
         # JAX sort.py:421-444: cut the sorted pairs at factor·N (never
@@ -368,6 +371,10 @@ def bin_splats(
         tile_start = torch.clamp(tile_start, max=cap)
         overflow = overflow + torch.clamp(num_pairs - cap, min=0)
         num_pairs = torch.clamp(num_pairs, max=cap)
+        kept = min(kept, cap)
+
+    tracing.count("binning.live_pairs", kept)
+    tracing.count("binning.slots", tile.shape[0])
 
     return TileBins(
         sorted_gidx=sorted_gidx,

@@ -25,6 +25,7 @@ import torch
 
 from ..models.gaussian_model import PARAMS, GaussianModel
 from ..ops.projection import quat_to_rotmat
+from ..utils import tracing
 
 DEAD_OPACITY = -100.0  # sigmoid ≈ 0: dead slots never rasterize
 
@@ -67,6 +68,7 @@ def pad_to_capacity(model: GaussianModel, capacity: int
                                 alive=alive, max_radius2d=zeros.clone())
 
 
+@tracing.spanned("densify_stats")
 def accumulate_stats(state: DensifyState, d_mean2d: torch.Tensor,
                      visible: torch.Tensor,
                      radius2d: Optional[torch.Tensor] = None

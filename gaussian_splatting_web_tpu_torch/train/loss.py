@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
+
 
 def full_f32() -> None:
     """Run float32 matmuls and cuDNN convolutions in full float32 (no TF32)
@@ -74,6 +76,7 @@ def ssim(
     return torch.mean(s)
 
 
+@tracing.spanned("loss")
 def photometric_loss(pred: torch.Tensor, target: torch.Tensor,
                      lambda_dssim: float = 0.2) -> torch.Tensor:
     """INRIA objective: (1−λ)·L1 + λ·(1−SSIM)/2."""

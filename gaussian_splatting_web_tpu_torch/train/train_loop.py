@@ -34,6 +34,7 @@ from ..io.dataset import View, scene_extent
 from ..models.gaussian_model import PARAMS, GaussianModel
 from ..ops.projection import project_gaussians
 from ..ops.rasterize import bin_and_composite
+from ..utils import tracing
 from .densify import (
     DensifyState,
     accumulate_stats,
@@ -116,21 +117,32 @@ def make_densify_train_step(width: int, height: int, config: RenderConfig,
     Turns TF32 off (`loss.full_f32`)."""
     full_f32()
 
+    @tracing.spanned("step")
     def step(state: TrainState, dstate: DensifyState, camera: CameraParams,
              target: torch.Tensor, sh_degree: int):
         model = state.model
         dev = model.device
         state.optimizer.zero_grad(set_to_none=True)
-        splats = project_gaussians(model.to_cloud(sh_degree),
-                                   camera.to(dev), width, height, config)
-        vs_aux = torch.zeros((model.num_gaussians, 2), dtype=torch.float32,
-                             device=dev, requires_grad=True)
-        splats = dataclasses.replace(splats, mean2d=splats.mean2d + vs_aux)
+        # the step's own differentiable work goes into the spans of its
+        # layers, so every backward node maps to one
+        with tracing.span("projection"):
+            cloud = model.to_cloud(sh_degree)
+        splats = project_gaussians(cloud, camera.to(dev), width, height,
+                                   config)
+        with tracing.span("projection"):
+            vs_aux = torch.zeros((model.num_gaussians, 2),
+                                 dtype=torch.float32, device=dev,
+                                 requires_grad=True)
+            splats = dataclasses.replace(splats,
+                                         mean2d=splats.mean2d + vs_aux)
         out, _ = bin_and_composite(splats, width, height, config)
-        bg = torch.tensor(config.background, dtype=out.rgb.dtype, device=dev)
-        img = out.rgb + (1.0 - out.alpha[..., None]) * bg
+        with tracing.span("composite"):
+            bg = torch.tensor(config.background, dtype=out.rgb.dtype,
+                              device=dev)
+            img = out.rgb + (1.0 - out.alpha[..., None]) * bg
         loss = photometric_loss(img, target, lambda_dssim)
-        loss.backward()
+        with tracing.span("backward"):
+            loss.backward()
         apply_gradients(state)
         # densification pressure in INRIA's units: their backward emits
         # view-space gradients scaled by (W/2, H/2) (diff-gaussian-

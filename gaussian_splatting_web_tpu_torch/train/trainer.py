@@ -20,6 +20,7 @@ from ..config import RenderConfig
 from ..core.types import CameraParams
 from ..models.gaussian_model import GaussianModel
 from ..ops.rasterize import render_impl
+from ..utils import tracing
 from .loss import full_f32, photometric_loss
 
 
@@ -80,6 +81,7 @@ class TrainState:
     step: int = 0
 
 
+@tracing.spanned("adam")
 def apply_gradients(state: TrainState) -> None:
     """One Adam update from the gradients in the parameters' .grad."""
     set_learning_rates(state.optimizer, state.step)

@@ -1,7 +1,6 @@
-"""Image IO and timing metrics."""
+"""Image IO, timing metrics and tracing."""
 
 from .image import read_image, write_png
-from .metrics import FrameStats, Timer, throughput_mpixps
+from .metrics import throughput_mpixps
 
-__all__ = ["write_png", "read_image", "Timer", "throughput_mpixps",
-           "FrameStats"]
+__all__ = ["write_png", "read_image", "throughput_mpixps"]

@@ -1,6 +1,6 @@
 """Timing and throughput metrics of the port (the JAX package's
-`utils/metrics.py`): structured per-frame stats, a wall-clock timer, and
-`time_fn`, which times a callable on its device.
+`utils/metrics.py`): `time_fn`, which times a callable on its device, and
+the throughput in megapixels per second.
 
 On a CUDA device `time_fn` brackets each call by `torch.cuda.synchronize()`
 and a pair of CUDA events, so the wrappers' host syncs and the idle time
@@ -10,41 +10,11 @@ reads `time.perf_counter`.
 
 from __future__ import annotations
 
-import dataclasses
 import time
-from typing import Callable, Dict
+from typing import Callable
 
 import numpy as np
 import torch
-
-
-@dataclasses.dataclass
-class FrameStats:
-    frame_ms: float
-    mpix_per_s: float
-    num_gaussians: int
-    num_pairs: int = 0
-    overflow: int = 0
-
-    def as_dict(self) -> Dict:
-        return dataclasses.asdict(self)
-
-
-class Timer:
-    """Wall-clock timer (synchronize the device inside the block when the
-    work is asynchronous)."""
-
-    def __init__(self):
-        self.t0 = None
-        self.elapsed = 0.0
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self.t0
-        return False
 
 
 def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2,

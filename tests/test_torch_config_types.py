@@ -208,6 +208,7 @@ def test_port_imports_no_jax():
         "gaussian_splatting_web_tpu_torch.utils",
         "gaussian_splatting_web_tpu_torch.utils.image",
         "gaussian_splatting_web_tpu_torch.utils.metrics",
+        "gaussian_splatting_web_tpu_torch.utils.tracing",
         "gaussian_splatting_web_tpu_torch.viewer.orbit",
         "gaussian_splatting_web_tpu_torch.viewer.server",
     ]
