@@ -11,9 +11,10 @@ the bench camera (eye (0, 0, -8) looking at the origin). Phases, each
 printing one line; any failure raises and exits non-zero:
 
   0 device   nvidia-smi name and power limit; a CUDA device is required
-  1 build    nvcc builds the four kernel sources (csrc/raster_fwd.cu,
+  1 build    nvcc builds the five kernel sources (csrc/raster_fwd.cu,
              raster_bwd.cu, anchor_fwd.cu, anchor_bwd.cu, which share
-             csrc/tile_walk.cuh), one process each, started together
+             csrc/tile_walk.cuh, and the projection's project.cu), one
+             process each, started together
   2 kernel   kernel A vs its plain PyTorch twin on the same bins: an
              opaque early-exit scene, a 72x40 ragged frame, a 96x64
              adversarial scene (`bench_lib.make_adversarial_scene`:
@@ -87,10 +88,10 @@ Tile sharding (A's and B's tile-list entries E-A and E-B, `parallel/`):
              one shard's list beside full-frame A and B in the same phase
  16 sharded  a one-rank NCCL group (`file://` store), kept open for
              phase 18: `render_sharded` equal to phase 4's `render` bit
-             for bit, one E-A launch; one `make_sharded_train_step` step
-             on two 1080p views: loss equal to the unsharded loss (rel
-             1e-5), gradients by the gradient rule, E-A and E-B twice each
-             and no other kernel
+             for bit, one E-A and one P launch; one
+             `make_sharded_train_step` step on two 1080p views: loss equal
+             to the unsharded loss (rel 1e-5), gradients by the gradient
+             rule, E-A, E-B, P and P bwd twice each and no other kernel
  17 eval     `cli eval --device cuda` on phase 8's capture and trained PLY
              prints its JSON line with a finite PSNR
 
@@ -100,11 +101,12 @@ Gaussian sharding (`parallel/gaussian_sharded.py`, E-A and E-B through
  18 gsharded on phase 16's one-rank NCCL group: `render_gaussian_sharded`
              and `render_gaussian_sharded_banded` with stream "a2a" and
              "ring" equal to phase 4's `render` bit for bit with overflow
-             0, one E-A launch each; one ring, one banded a2a and one
-             banded ring-stream `make_gaussian_sharded_train_step` step on
-             phase 16's two views against the unsharded loss (rel 1e-5)
-             and gradients (the gradient rule), E-A 2 and E-B 2 each and no
-             other kernel; `dryrun_multichip(1)` in the group
+             0, one E-A and one P launch each; one ring, one banded a2a
+             and one banded ring-stream `make_gaussian_sharded_train_step`
+             step on phase 16's two views against the unsharded loss (rel
+             1e-5) and gradients (the gradient rule), E-A, E-B, P and P bwd
+             2 each and no other kernel; `dryrun_multichip(1)` in the
+             group
  19 config   `debug_selected` on a splat near the centre through kernel A
              (`render`, `rasterize_tiles`) against the plain twin on the
              same highlighted fields (the image rule); a
@@ -150,6 +152,23 @@ The bench (`bench_lib.run`, `cli bench`) and the native PLY unpack:
              `read_ply(use_native=True)` and `(use_native=False)` equal bit
              for bit (host clock, 3 reads each)
 
+The projection's kernels (`csrc/project.cu`, `ops/cuda/project.py`):
+
+ 22 project  P fwd and P bwd through `project_gaussians` at 1080p on the 1M
+             SH-degree-3 scene: the forward against
+             `project_gaussians_plain` (`bench_lib.projection_parity`:
+             every float field within rtol 1e-5, radius and valid rows
+             excused only at an integer pre-ceil radius or the frame's
+             edge, at most 1e-4 of the rows) and every input's gradient
+             against autograd of the forward twin in float64
+             (`bench_lib.projection_grad_parity`: rows within 2e-3, the
+             median row within 1e-5, rows on a select's or clamp's switch
+             point left out), the rules of tests/test_torch_project_cuda.py;
+             P=2 and P-bwd=1 launches; both timed alone and their twins
+
+Every phase that renders or trains counts P and P bwd with the other
+kernels: one P launch a frame, one P and one P bwd launch a step.
+
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
 residual log-transmittance agrees to 1e-4. Gradient rule
@@ -163,8 +182,10 @@ and allocations first; CUDA events around 5 back-to-back launches, divided
 by 5, median of 7 samples after warm-up; every launch includes its
 one-block tile-schedule kernel), the time in the JSON line;
 "wrapper" is the whole wrapper call (checks, allocations, launch) between
-CUDA events, median of 7; the plain twins are timed that way too. C and D
-are timed with the same helpers.
+CUDA events, median of 7; the plain twins are timed that way too. C, D, P
+fwd and P bwd are timed with the same helpers (P bwd with random
+gradients of mean2d, conic, rgb and opacity, none of depth, as in
+training; its twin `project_backward_plain` on the same tensors).
 
 Each kernel's bound (`bench_lib.work`, `bound`, `raster_bytes`, shared
 with the bench's roofline rows) is the larger of its bytes (each input read once, each
@@ -189,7 +210,10 @@ E-A's and E-B's bound counts the listed tiles only: their pairs' ids,
 their splats' 48-byte rows (each splat once), the list with its starts
 and counts, and the slots written (rgba, log-T and last index); E-B also
 reads the cotangent and writes 36 bytes per listed pair. Their steps are
-A's and B's over those tiles.
+A's and B's over those tiles. P fwd's and P bwd's bound is their bytes
+alone, each input read once and each output written once:
+`bench_lib.P_FWD_BYTES` (281) and `P_BWD_BYTES` (508) a splat at SH
+degree 3.
 
 Prints the card line, a JSON line of kernel results, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -214,12 +238,19 @@ import torch.distributed as dist
 from gaussian_splatting_web_tpu_torch import bench_lib
 from gaussian_splatting_web_tpu_torch.bench_lib import (
     GRAD_EXTRA,
+    HBM_BYTES_S,
+    P_BWD_BYTES,
+    P_FWD_BYTES,
+    PROJ_INPUTS,
     bound,
     grad_parity,
     grad_parity_ok,
     make_adversarial_scene,
     make_scene,
     orbit_camera,
+    projection_grad_parity,
+    projection_grads_vs_f64,
+    projection_parity,
     raster_bytes,
     step_parity,
     unsharded_reference,
@@ -241,8 +272,14 @@ from gaussian_splatting_web_tpu_torch.ops import anchor, rasterize
 from gaussian_splatting_web_tpu_torch.ops.composite import post_process
 from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import build
+from gaussian_splatting_web_tpu_torch.ops.cuda import project as project_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
-from gaussian_splatting_web_tpu_torch.ops.projection import project_gaussians
+from gaussian_splatting_web_tpu_torch.ops.projection import (
+    pack_camera,
+    project_backward_plain,
+    project_gaussians,
+    project_gaussians_plain,
+)
 from gaussian_splatting_web_tpu_torch.ops.rasterize import (
     composite_backward_plain,
     composite_image_plain,
@@ -334,8 +371,15 @@ KERNELS = {
         "gaussian_splatting_web_tpu_torch/csrc/raster_bwd.cu",
         "gaussian_splatting_web_tpu/ops/pallas/raster_bwd.py:449 "
         "backward_pair_grads(tile_ids=)"),
+    # no TPU kernel: the JAX package's projection is XLA
+    "project_fwd": ("gaussian_splatting_web_tpu_torch/csrc/project.cu",
+                    "gaussian_splatting_web_tpu/ops/projection.py "
+                    "project_gaussians (XLA)"),
+    "project_bwd": ("gaussian_splatting_web_tpu_torch/csrc/project.cu",
+                    "gaussian_splatting_web_tpu/ops/projection.py "
+                    "project_gaussians's autodiff (XLA)"),
 }
-SOURCES = ("raster_fwd", "raster_bwd", "anchor_fwd", "anchor_bwd")
+SOURCES = ("raster_fwd", "raster_bwd", "anchor_fwd", "anchor_bwd", "project")
 class SmokeFailure(RuntimeError):
     pass
 
@@ -346,18 +390,21 @@ def check(cond, msg):
 
 
 def launch_counts():
-    """Launches of kernels A, B, C, D and of A's and B's tile-list entries
-    (E-A, E-B) since the last reset."""
+    """Launches of kernels A, B, C, D, of A's and B's tile-list entries
+    (E-A, E-B) and of the projection's P fwd and P bwd (P, P-bwd) since
+    the last reset."""
     return {"A": raster_cuda.launches, "B": raster_cuda.launches_bwd,
             "C": anchor_cuda.launches, "D": anchor_cuda.launches_bwd,
             "E-A": raster_cuda.launches_tiles,
-            "E-B": raster_cuda.launches_tiles_bwd}
+            "E-B": raster_cuda.launches_tiles_bwd,
+            "P": project_cuda.launches, "P-bwd": project_cuda.launches_bwd}
 
 
 def reset_counts():
     raster_cuda.launches = raster_cuda.launches_bwd = 0
     raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
     anchor_cuda.launches = anchor_cuda.launches_bwd = 0
+    project_cuda.launches = project_cuda.launches_bwd = 0
 
 
 def median_ms(fn, runs, warmup=2, repeat=1):
@@ -801,8 +848,8 @@ def one_rank_group():
 def sharded_step_check(step, state, ref, what):
     """One sharded step on `bench_lib.unsharded_reference`'s two views
     against its loss and gradients (`bench_lib.step_parity`) → (counts,
-    step ms, loss, parity); E-A 2 and E-B 2 and no other kernel may
-    launch."""
+    step ms, loss, parity); E-A 2, E-B 2, P 2 and P-bwd 2 (each view
+    projected once) and no other kernel may launch."""
     cams, targets = ref[0], ref[1]
     reset_counts()
     torch.cuda.synchronize()
@@ -816,7 +863,8 @@ def sharded_step_check(step, state, ref, what):
                                 for f in ref[3]], ref)
     check(parity["ok"], f"{what}: loss {loss} vs unsharded {ref[2]} (rel "
           f"{parity['rel']:.2e}), gradients {parity['stats']}")
-    check(counts == {**{k: 0 for k in counts}, "E-A": 2, "E-B": 2},
+    check(counts == {**{k: 0 for k in counts}, "E-A": 2, "E-B": 2, "P": 2,
+                     "P-bwd": 2},
           f"{what} on two views launched {counts}")
     return counts, step_ms, loss, parity
 
@@ -834,7 +882,8 @@ def phase_sharded(dev, cloud, cfg, frame, mesh, ref):
     render_counts = launch_counts()
     check(torch.equal(rgb, frame), "render_sharded on one rank "
           "differs from render")
-    check(render_counts["E-A"] == 1 and render_counts["A"] == 0,
+    check(render_counts == {**{k: 0 for k in render_counts}, "E-A": 1,
+                            "P": 1},
           f"render_sharded launched {render_counts}")
     model = GaussianModel.from_cloud(cloud)
     state = TrainState(model, make_optimizer(model))
@@ -856,11 +905,11 @@ def phase_sharded(dev, cloud, cfg, frame, mesh, ref):
 def phase_gaussian_sharded(dev, cloud, cfg, frame, mesh, ref):
     """Phase 18, on the one-rank group: the Gaussian-sharded ring render
     and the banded renders (a2a and ring streams) equal `render` (phase
-    4's frame) bit for bit with overflow 0, one E-A launch each; one ring,
-    one banded a2a and one banded ring-stream step of
+    4's frame) bit for bit with overflow 0, one E-A and one P launch each;
+    one ring, one banded a2a and one banded ring-stream step of
     `make_gaussian_sharded_train_step` on two 1080p views against the
-    unsharded loss and gradients, E-A 2 and E-B 2 each; the dry run in the
-    group."""
+    unsharded loss and gradients, E-A, E-B, P and P-bwd 2 each; the dry run
+    in the group."""
     camera = bench_camera(W, H, dev)
     shard = shard_model(cloud, mesh)
 
@@ -882,7 +931,7 @@ def phase_gaussian_sharded(dev, cloud, cfg, frame, mesh, ref):
         check(torch.equal(rgb, frame), f"Gaussian-sharded {name} render on "
               "one rank differs from render")
         check(over == 0, f"Gaussian-sharded {name} render: overflow {over}")
-        check(counts == {**{k: 0 for k in counts}, "E-A": 1},
+        check(counts == {**{k: 0 for k in counts}, "E-A": 1, "P": 1},
               f"Gaussian-sharded {name} render launched {counts}")
         times = []
         for _ in range(3):
@@ -933,7 +982,8 @@ def phase_gaussian_sharded(dev, cloud, cfg, frame, mesh, ref):
           f"dryrun_multichip(1) losses {losses}")
     print(f"[18 gsharded] one-rank NCCL mesh {mesh.shape}, "
           f"{cloud.num_gaussians} splats at {W}x{H}: renders equal to "
-          "render bit for bit, overflow 0, one E-A launch each (host clock, "
+          "render bit for bit, overflow 0, one E-A and one P launch each "
+          "(host clock, "
           "medians of 3 in ms: " + ", ".join(renders)
           + "; the banded selection alone "
           + ", ".join(f"{k} {v:.2f}" for k, v in select_ms.items())
@@ -965,7 +1015,7 @@ def phase_config(dev, cloud, cfg, frame):
         img_d, _ = render(cloud, camera, W, H, cfg_d)
         got = rasterize_tiles(splats, bins, W, H, cfg_d)
         counts = launch_counts()
-        check(counts == {**{c: 0 for c in counts}, "A": 2},
+        check(counts == {**{c: 0 for c in counts}, "A": 2, "P": 1},
               f"debug_selected renders launched {counts}")
         check(torch.equal(img_d, got.rgb), "debug_selected: render and "
               "rasterize_tiles differ")
@@ -981,7 +1031,7 @@ def phase_config(dev, cloud, cfg, frame):
         reset_counts()
         img_b, aux_b = render(cloud, camera, W, H, cfg_b)
         counts_b = launch_counts()
-        check(counts_b == {**{c: 0 for c in counts_b}, "A": 1},
+        check(counts_b == {**{c: 0 for c in counts_b}, "A": 1, "P": 1},
               f"bf16 render launched {counts_b}")
         splats_b = project_gaussians(bf, camera, W, H, cfg)
         bins_b = bin_splats(splats_b, W, H, cfg)
@@ -1003,8 +1053,8 @@ def phase_config(dev, cloud, cfg, frame):
           f"abs err {err_d['max_abs_err']:.3e}, {changed} pixels changed; "
           f"dtype=bfloat16 through A vs its twin on the bf16 inputs: max abs "
           f"err {err_b['max_abs_err']:.3e}; vs the f32 frame mean |diff| "
-          f"{mean:.2e}, p99 {p99:.2e} (bound 5e-3, 0.05); launches A=2 and "
-          "A=1")
+          f"{mean:.2e}, p99 {p99:.2e} (bound 5e-3, 0.05); launches A=2 P=1 and "
+          "A=1 P=1")
 
 
 def phase_packed(dev, cloud, frame, exact):
@@ -1473,7 +1523,7 @@ def phase_render(dev, cloud, cfg, frames=5, ref=None, label=None,
         img, aux, rgba, stages["frame"] = timed_frames(cloud, camera, cfg,
                                                        frames)
         counts = launch_counts()
-    check(counts == {k: frames * (k == kernel) for k in counts},
+    check(counts == {k: frames * (k in (kernel, "P")) for k in counts},
           f"render launched {counts} in {frames} frames")
     check(img.shape == (H, W, 3) and rgba.shape == (H, W, 4), "frame shape")
     check(bool(torch.isfinite(rgba).all()), "non-finite frame")
@@ -1508,9 +1558,72 @@ def phase_render(dev, cloud, cfg, frames=5, ref=None, label=None,
     return img, med
 
 
+def phase_project(dev, cloud, cfg, label="22 project"):
+    """P fwd and P bwd at 1080p on the 1M scene against their twins, timed
+    alone → (P fwd, P bwd) results for the JSON line."""
+    n = cloud.num_gaussians
+    check(cloud.sh.shape[1] == 16, "the byte floors are SH degree 3's")
+    camera = bench_camera(W, H, dev)
+    reset_counts()
+    with torch.no_grad():
+        got = project_gaussians(cloud, camera, W, H, cfg)
+        want = project_gaussians_plain(cloud, camera, W, H, cfg)
+    fwd = projection_parity(got, want, W, H, cfg)
+    check(fwd["ok"] and fwd["excused"] <= 1e-4 * n, f"P fwd vs twin: {fwd}")
+    visible = int(want.valid.sum())
+    del got, want
+    host = type(cloud)(**{f: getattr(cloud, f).cpu() for f in PROJ_INPUTS})
+    grads = projection_grads_vs_f64(host, bench_camera(W, H, "cpu"), W, H,
+                                    cfg, dev, seed=0)
+    bwd = projection_grad_parity(*grads)
+    check(bwd["ok"], f"P bwd vs float64 autograd: {bwd}")
+    del host, grads
+    counts = launch_counts()
+    check(counts == {**{k: 0 for k in counts}, "P": 2, "P-bwd": 1},
+          f"the projection's checks launched {counts}")
+
+    ins = project_cuda._inputs(*(getattr(cloud, f) for f in PROJ_INPUTS))
+    cam = pack_camera(camera)
+    run_f, splats = project_cuda.prepare_fwd(ins, cam, W, H, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_out = [None if f == "depth" else
+             torch.randn(getattr(splats, f).shape, generator=gen, device=dev)
+             for f in ("mean2d", "conic", "depth", "rgb", "opacity")]
+    run_b, _ = project_cuda.prepare_bwd(ins, cam, d_out, W, H, cfg)
+    results = []
+    for name, run, plain, nbytes, err in (
+            ("P fwd", run_f,
+             lambda: project_gaussians_plain(cloud, camera, W, H, cfg),
+             P_FWD_BYTES, fwd["max_abs_err"]),
+            ("P bwd", run_b,
+             lambda: project_backward_plain(*ins, cam, W, H, cfg, *d_out),
+             P_BWD_BYTES, bwd["max_abs_err"])):
+        ms = kernel_ms((run,))
+        bound_ms = 1e3 * n * nbytes / HBM_BYTES_S
+        results.append({"max_abs_err": err, "ms": ms,
+                        "plain_ms": median_ms(plain, 7, warmup=1),
+                        "bound_ms": bound_ms, "bound_by": "bytes",
+                        "library_ms": None, "name": name, "bytes": nbytes})
+    print(f"[{label}] P fwd vs twin at {W}x{H} on {n} splats ({visible} "
+          "visible): largest error / tolerance "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fwd["fields"].items())
+          + f", {fwd['excused']} rows excused; P bwd vs float64 autograd, "
+          "largest / median row error "
+          + ", ".join(f"{k} {a:.2e}/{b:.2e}"
+                      for k, (a, b) in bwd["leaves"].items())
+          + f", {bwd['switch']} rows on a switch point; launches P=2 "
+          "P-bwd=1; kernel alone "
+          + "; ".join(f"{r['name']} {r['ms']:.4f} ms ({r['bytes']} B a "
+                      f"splat: {100 * r['bound_ms'] / r['ms']:.1f}% of the "
+                      f"byte floor {r['bound_ms']:.4f} ms), twin "
+                      f"{r['plain_ms']:.3f} ms" for r in results))
+    return tuple({k: v for k, v in r.items() if k not in ("name", "bytes")}
+                 for r in results)
+
+
 def phase_step(dev, cloud, cfg, steps=7, label="5 step", kernels="AB"):
     """Forward + backward through `render`, as a training step runs it;
-    `kernels` launch once per step and no other does."""
+    `kernels`, P and P-bwd launch once per step and no other does."""
     camera = bench_camera(W, H, dev)
     leaves = {f: getattr(cloud, f).detach().clone().requires_grad_(True)
               for f in ("xyz", "log_scale", "quat", "opacity_logit", "sh")}
@@ -1532,7 +1645,8 @@ def phase_step(dev, cloud, cfg, steps=7, label="5 step", kernels="AB"):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
-    check(counts == {k: steps * (k in kernels) for k in counts},
+    check(counts == {k: steps * (k in (*kernels, "P", "P-bwd"))
+                     for k in counts},
           f"{steps} fwd+bwd steps launched {counts}")
     for name, t in leaves.items():
         check(t.grad is not None and bool(torch.isfinite(t.grad).all()),
@@ -1571,7 +1685,7 @@ def phase_serve(dev, cloud, cfg, n_events=5, label="6 serve", kernel="A"):
         frame, _ = app.handle_event(ev)
         check(frame.shape == (720, 1280, 4), f"{ev['kind']}: {frame.shape}")
     counts = launch_counts()
-    check(counts == {k: len(events) * (k == kernel) for k in counts},
+    check(counts == {k: len(events) * (k in (kernel, "P")) for k in counts},
           f"serve launched {counts} in {len(events)} events")
     print(f"[{label}] ViewerApp 1280x720 ({cfg.binning} binning) answered "
           + ", ".join(e["kind"] for e in events)
@@ -1660,7 +1774,8 @@ def phase_train(dev, cfg, iterations=30, label="8 train", kernels="AB",
                           on_log=on_log, device=dev)
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    check(counts == {k: iterations * (k in kernels) for k in counts},
+    check(counts == {k: iterations * (k in (*kernels, "P", "P-bwd"))
+                     for k in counts},
           f"train launched {counts} in {iterations} iterations")
     losses = [x[1] for x in log]
     check(len(losses) == iterations and all(map(math.isfinite, losses)),
@@ -1757,6 +1872,7 @@ def main():
         abwd = phase_anchor_backward(dev, cfg_a, afull)
         del afull
         _, med_a = phase_render(dev, cloud, cfg_a, ref=frame)
+    p_fwd, p_bwd = phase_project(dev, cloud, cfg)
     step_ms = phase_step(dev, cloud, cfg)
     step_a = phase_step(dev, cloud, cfg_a, label="13 anchor", kernels="CD")
     with torch.no_grad():
@@ -1783,11 +1899,13 @@ def main():
         phase_cli_train(dev, cfg)
         phase_eval(capture)
     results = {"raster_fwd": fwd, "raster_bwd": bwd, "anchor_fwd": afwd,
-               "anchor_bwd": abwd, **tiles}
+               "anchor_bwd": abwd, **tiles, "project_fwd": p_fwd,
+               "project_bwd": p_bwd}
     launches = {"raster_fwd": trained["A"], "raster_bwd": trained["B"],
                 "anchor_fwd": trained_a["C"], "anchor_bwd": trained_a["D"],
                 "raster_fwd_tiles": sharded["E-A"],
-                "raster_bwd_tiles": sharded["E-B"]}
+                "raster_bwd_tiles": sharded["E-B"],
+                "project_fwd": trained["P"], "project_bwd": trained["P-bwd"]}
     print(f"[wall] {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,

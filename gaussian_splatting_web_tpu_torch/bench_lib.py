@@ -18,7 +18,9 @@ package's `bench_lib._grad_parity`; `image_rule` is the repo's image rule
 (`chip_smoke.py` on one card, `multichip_check.py` across the cards).
 `work` and `bound` count what kernels A-E need on this run's data and the
 least time an H100 could take for it; `chip_smoke.py` and `run` share
-them.
+them. `projection_parity` and `projection_grad_parity` hold kernels P fwd
+and P bwd to their twins (`chip_smoke.py` and
+`tests/test_torch_project_cuda.py`).
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ import torch.nn.functional as F
 
 from .config import RenderConfig
 from .core.camera import default_camera
-from .core.types import GaussianCloud
+from .core.types import CameraParams, GaussianCloud
 from .ops import rasterize
-from .ops.projection import project_gaussians
+from .ops.projection import project_gaussians, project_gaussians_plain
+from .ops.sh import sh_basis
 from .ops.sort import bin_splats
 from .utils.metrics import throughput_mpixps, time_fn
 
@@ -50,6 +53,26 @@ GRAD_EXTRA = 2            # knife-edge outliers allowed on top of 1e-5 of n
 # the image rule: at most IMAGE_BAD_FRAC of the pixels off by more than
 # IMAGE_ATOL in some channel
 IMAGE_ATOL, IMAGE_BAD_FRAC = 2e-4, 2e-4
+
+# kernels P fwd / P bwd against their plain twins (`projection_parity`,
+# `projection_grad_parity`): a float field within PROJ_RTOL of the twin's
+# plus PROJ_RTOL of the field's largest value (float32 sums in another
+# order); a radius may differ by 1, and `valid` too, where the twin's radius
+# before `ceil` lies within PROJ_NEAR_INT of an integer, and `valid` where
+# the footprint lies within PROJ_EDGE_PX of the frame's edge. Gradients
+# against autograd of the forward twin in float64, on the rows at least
+# PROJ_SWITCH from every select's or clamp's switch point: each row within
+# PROJ_ROW_ERR of its norm, the median row within PROJ_MEDIAN_ERR.
+PROJ_RTOL, PROJ_NEAR_INT, PROJ_EDGE_PX = 1e-5, 1e-4, 1e-3
+PROJ_SWITCH, PROJ_ROW_ERR, PROJ_MEDIAN_ERR = 1e-5, 2e-3, 1e-5
+PROJ_INPUTS = ("xyz", "log_scale", "quat", "opacity_logit", "sh")
+PROJ_GRAD_OUTPUTS = ("mean2d", "conic", "depth", "rgb", "opacity")
+# a Gaussian's bytes at SH degree 3: xyz 12, log_scale 12, quat 16,
+# opacity logit 4 and 16x3 SH 192 in (236); mean2d 8, conic 12, depth 4,
+# radius 4, rgb 12, opacity 4 and valid 1 out (45). P bwd reads the 236 and
+# the gradients of mean2d, conic, rgb and opacity (36) and writes the 236
+# of the inputs' gradients.
+P_FWD_BYTES, P_BWD_BYTES = 236 + 45, 236 + 36 + 236
 
 # peaks of one H100 SXM (NVIDIA data sheet; SFU: 16 results per SM per
 # clock at the 1.98 GHz boost clock)
@@ -173,6 +196,128 @@ def image_rule(img: torch.Tensor, ref: torch.Tensor) -> dict:
     return {"max_abs_err": float(diff.max()), "bad_frac": bad,
             "bitwise": bool(torch.equal(img, ref)),
             "ok": bad <= IMAGE_BAD_FRAC}
+
+
+def pre_ceil_radius(splats, config) -> torch.Tensor:
+    """The radius before `ceil` from the splats' conic and opacity, in
+    float64."""
+    a, b, c = (splats.conic[:, i].double() for i in range(3))
+    det = a * c - b * b          # of the conic: 1 / det(Σ₂D)
+    a2d, c2d = c / det, a / det
+    mid = 0.5 * (a2d + c2d)
+    lam1 = mid + torch.sqrt(torch.clamp(mid * mid - 1.0 / det, min=0.1))
+    op = splats.opacity.double()
+    ratio = torch.log(torch.clamp(op, min=config.alpha_cutoff)
+                      / config.alpha_cutoff)
+    return torch.sqrt(2.0 * lam1 * ratio)
+
+
+def projection_parity(got, want, width, height, config) -> dict:
+    """Kernel P fwd's splats `got` against its twin's `want` by the rule
+    above → per float field its largest error in units of its tolerance
+    (`fields`: at most 1 holds), the rows whose radius or `valid` differ
+    (`excused`), the largest |got − want| of a float field (`max_abs_err`)
+    and whether the rule holds (`ok`)."""
+    fields, max_abs = {}, 0.0
+    for name in PROJ_GRAD_OUTPUTS:
+        g, x = getattr(got, name), getattr(want, name)
+        if g.shape != x.shape or g.dtype != x.dtype:
+            raise ValueError(f"{name}: {tuple(g.shape)} {g.dtype} against "
+                             f"{tuple(x.shape)} {x.dtype}")
+        g, x = g.double(), x.double()
+        diff = torch.where(g == x, 0.0, (g - x).abs())
+        tol = PROJ_RTOL * (x.abs() + x.abs().max())
+        fields[name] = float(torch.where(diff == 0, 0.0, diff / tol).max())
+        max_abs = max(max_abs, float(diff.max()))
+    pre = pre_ceil_radius(want, config)
+    near = (pre - torch.round(pre)).abs() < PROJ_NEAR_INT
+    r_diff = got.valid & want.valid & (got.radius != want.radius)
+    radius_ok = bool((((got.radius - want.radius).abs() <= 1) & near)[r_diff]
+                     .all())
+    mx, my = want.mean2d[:, 0].double(), want.mean2d[:, 1].double()
+    r = torch.ceil(pre)
+    edge = torch.stack([(mx + r).abs(), (mx - r - width).abs(),
+                        (my + r).abs(), (my - r - height).abs()]).amin(0)
+    v_diff = got.valid != want.valid
+    valid_ok = bool((near | (edge < PROJ_EDGE_PX))[v_diff].all())
+    return {"fields": fields, "excused": int((r_diff | v_diff).sum()),
+            "max_abs_err": max_abs,
+            "ok": (all(v <= 1.0 for v in fields.values()) and radius_ok
+                   and valid_ok)}
+
+
+def branch_margin(cloud, camera, config) -> torch.Tensor:
+    """Per row (float64), the distance of each select or clamp the
+    projection's gradient follows from its switch point: clip_w from 0.2,
+    |t.x / tz| and |t.y / tz| from the FOV limits, each SH colour before
+    its clamp from 0 → [N]; a float32 row this close may take the other
+    branch than the float64 one."""
+    x = cloud.xyz.double()
+    view, pv = camera.view.double(), camera.view_proj.double()
+    t = x @ view[:3, :3].T + view[:3, 3]
+    clip_w = x @ pv[3, :3] + pv[3, 3]
+    tz = torch.where(clip_w > 0.2, t[:, 2], torch.ones_like(clip_w))
+    lim = config.fov_clamp * camera.tan_half_fov.double()
+    fov = ((t[:, :2] / tz[:, None]).abs() - lim).abs().min(1).values
+    v = x - camera.cam_pos.double()
+    dirs = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    basis = sh_basis(dirs, cloud.sh.shape[1])
+    res = (basis[..., None] * cloud.sh.double()).sum(1) + 0.5
+    return torch.minimum(torch.minimum((clip_w - 0.2).abs(), fov),
+                         res.abs().min(1).values)
+
+
+def projection_grads_vs_f64(cloud, camera, width, height, config, device,
+                            seed):
+    """`project_gaussians`'s gradients (float32; P bwd on a CUDA device)
+    and autograd of the forward twin in float64, both on `device`, under
+    the same random cotangents of every differentiable output; `cloud`
+    and `camera` on the host → (got, want, switch), `switch` the rows
+    closer than PROJ_SWITCH to a switch point (`branch_margin`)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    n = cloud.xyz.shape[0]
+    shapes = {"mean2d": (n, 2), "conic": (n, 3), "depth": (n,),
+              "rgb": (n, 3), "opacity": (n,)}
+    cot = {f: torch.randn(s, generator=gen) for f, s in shapes.items()}
+    results = []
+    for dtype, fn in ((torch.float32, project_gaussians),
+                      (torch.float64, project_gaussians_plain)):
+        leaves = {f: getattr(cloud, f).to(device, dtype).requires_grad_(True)
+                  for f in PROJ_INPUTS}
+        cam = CameraParams(**{f.name: getattr(camera, f.name).to(device,
+                                                                 dtype)
+                              for f in dataclasses.fields(camera)})
+        out = fn(GaussianCloud(**leaves), cam, width, height, config)
+        results.append(torch.autograd.grad(
+            [getattr(out, f) for f in PROJ_GRAD_OUTPUTS],
+            [leaves[f] for f in PROJ_INPUTS],
+            [cot[f].to(device, dtype) for f in PROJ_GRAD_OUTPUTS]))
+        del out, leaves
+    switch = branch_margin(cloud, camera, config) < PROJ_SWITCH
+    return (*results, switch.to(device))
+
+
+def projection_grad_parity(got, want, switch) -> dict:
+    """P bwd's gradients `got` against the float64 ones `want`, row by row
+    on the rows off every switch point → per input the largest and the
+    median row error (`leaves`), the rows on a switch point (`switch`: at
+    most 1e-4 of the rows plus 1 may be), the largest |got − want| off
+    them (`max_abs_err`) and whether the rule holds (`ok`)."""
+    keep = ~switch
+    n_switch = int(switch.sum())
+    ok = n_switch <= 1e-4 * switch.numel() + 1
+    leaves, max_abs = {}, 0.0
+    for name, g, x in zip(PROJ_INPUTS, got, want):
+        g = g.double().reshape(g.shape[0], -1)[keep]
+        x = x.reshape(x.shape[0], -1)[keep]
+        norm = x.norm(dim=1)
+        err = (g - x).norm(dim=1) / (norm + 1e-6 * norm.max() + 1e-30)
+        leaves[name] = (float(err.max()), float(err.median()))
+        max_abs = max(max_abs, float((g - x).abs().max()))
+        ok = (ok and leaves[name][0] <= PROJ_ROW_ERR
+              and leaves[name][1] <= PROJ_MEDIAN_ERR)
+    return {"leaves": leaves, "switch": n_switch, "max_abs_err": max_abs,
+            "ok": ok}
 
 
 def orbit_camera(i, n, w, h, radius=8.0):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels A-D (and E) of a checkout, each timed alone, at the smoke size.
+"""Kernels A-D (and E, P) of a checkout, each timed alone.
 
     python3 kernel_times.py [--root DIR]
 
@@ -21,7 +21,19 @@ timed the same way over one shard's list: shard 0 of 4 of the tile deal
 Prints the card line and one JSON line {"root": ..., "A": {"kernel_ms",
 "wrapper_ms", "sha256"}, "B": ..., "C": ..., "D": ..., "E-A": ...,
 "E-B": ...}, "sha256" a digest of the wrapper's outputs (equal digests:
-equal bits). Imports nothing of JAX.
+equal bits).
+
+Where the checkout has them (`ops/cuda/project.py`), the projection's
+kernels P fwd and P bwd are timed alone the same way (`prepare_fwd` /
+`prepare_bwd`, 5 launches a sample, median of 7) on the benchmark's two
+scene sizes at SH degree 3: 2.96M Gaussians at 1237x822 and 1.66M at
+979x546, `make_scene`'s distribution, seen from (0, 0, -8); the backward
+with random gradients of mean2d, conic, rgb and opacity (none of depth, as
+in training). Each time is set against its byte floor at 3.35 TB/s:
+`bench_lib.P_FWD_BYTES` (281) and `P_BWD_BYTES` (508) a Gaussian, each
+input byte read once and each output byte written once; "twin_ms" is the plain twin on the card on the
+same tensors (`project_gaussians_plain`, `project_backward_plain`), median
+of 7. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import sys
 import torch
 
 W, H = 1920, 1080
+P_SCENES = ((2_960_000, 1237, 822), (1_660_000, 979, 546))
 
 
 def median_ms(fn, runs=7, warmup=2, repeat=1):
@@ -147,7 +160,59 @@ def main():
             result[name] = {"kernel_ms": median_ms(run, repeat=5),
                             "wrapper_ms": median_ms(wrappers[name]),
                             "sha256": digest(wrappers[name]())}
+        result.update(projection_times(root, make_scene, default_camera))
     print(json.dumps(result))
+
+
+def projection_times(root, make_scene, default_camera) -> dict:
+    """P fwd and P bwd alone at P_SCENES, with their byte floors; empty
+    for a checkout without them."""
+    try:
+        from gaussian_splatting_web_tpu_torch.ops.cuda import project as pc
+    except ImportError:
+        return {}
+    from gaussian_splatting_web_tpu_torch.bench_lib import (
+        HBM_BYTES_S,
+        P_BWD_BYTES,
+        P_FWD_BYTES,
+    )
+    from gaussian_splatting_web_tpu_torch.config import RenderConfig
+    from gaussian_splatting_web_tpu_torch.ops.projection import (
+        pack_camera,
+        project_backward_plain,
+        project_gaussians_plain,
+    )
+
+    out = {}
+    dev = torch.device("cuda")
+    cfg = RenderConfig()
+    for n, w, h in P_SCENES:
+        cloud = make_scene(n, seed=0, sh_degree=3, device=dev)
+        camera = default_camera(w, h, eye=(0, 0, -8),
+                                center=(0, 0, 0)).to(dev)
+        ins = pc._inputs(cloud.xyz, cloud.log_scale, cloud.quat,
+                         cloud.opacity_logit, cloud.sh)
+        cam = pack_camera(camera)
+        run_f, splats = pc.prepare_fwd(ins, cam, w, h, cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        grads = [torch.randn(getattr(splats, f).shape, generator=gen,
+                             device=dev) if f != "depth" else None
+                 for f in ("mean2d", "conic", "depth", "rgb", "opacity")]
+        run_b, _ = pc.prepare_bwd(ins, cam, grads, w, h, cfg)
+        twins = (lambda: project_gaussians_plain(cloud, camera, w, h, cfg),
+                 lambda: project_backward_plain(*ins, cam, w, h, cfg,
+                                                *grads))
+        for name, run, twin, per in (("P fwd", run_f, twins[0], P_FWD_BYTES),
+                                     ("P bwd", run_b, twins[1],
+                                      P_BWD_BYTES)):
+            ms = median_ms(run, repeat=5)
+            floor_ms = 1e3 * n * per / HBM_BYTES_S
+            out[f"{name} {n / 1e6:.2f}M"] = {
+                "kernel_ms": ms, "floor_ms": floor_ms,
+                "floor_pct": 100.0 * floor_ms / ms, "bytes_per_gaussian": per,
+                "twin_ms": median_ms(twin)}
+        del cloud, ins, splats, grads, run_f, run_b, twins
+    return out
 
 
 if __name__ == "__main__":
