@@ -3,7 +3,7 @@
   python -m gaussian_splatting_web_tpu_torch.cli info   --ply scene.ply
   python -m gaussian_splatting_web_tpu_torch.cli render --ply scene.ply [--cameras cam.json] --out out/ [--device cuda] [--gaussian-sharded[=ring|banded]]
   python -m gaussian_splatting_web_tpu_torch.cli serve  --ply scene.ply --port 8090 [--device cuda]
-  python -m gaussian_splatting_web_tpu_torch.cli train  --cameras cameras.json --images images/ [--ply init.ply] --out trained.ply [--checkpoint dir [--restarts N]] [--multihost] [--device cuda]
+  python -m gaussian_splatting_web_tpu_torch.cli train  --cameras cameras.json --images images/ [--ply init.ply] --out trained.ply [--checkpoint dir [--restarts N]] [--multihost [--gaussian-sharded[=banded]]] [--device cuda]
   python -m gaussian_splatting_web_tpu_torch.cli eval   --ply trained.ply --cameras cameras.json --images images/ [--device cuda]
   python -m gaussian_splatting_web_tpu_torch.cli bench  [--ply scene.ply] [--width 1280 --height 720] [--device cuda] [--depth-bits 19 ...]
 
@@ -19,6 +19,14 @@ error, never a silent switch to the CPU. `render --gaussian-sharded` and
 `train --multihost` join the process group `torchrun` describes
 (`parallel/multihost.py`: NCCL on the cards, gloo with `--device cpu`);
 without one, `render --gaussian-sharded` runs on a 1 × 1 mesh.
+`train --multihost --gaussian-sharded` shards the model, its Adam moments
+and densification statistics over every rank of that group (`train`'s
+Gaussian-sharded arena, the banded a2a exchange); rank 0
+gathers the shards and writes the PLY. Densification rounds, opacity
+resets and `--checkpoint` are refused on that path (NotImplementedError),
+so keep `--iterations` below the first round (500). Each rank composites a
+band of tile rows: give every rank at least one (16 pixel rows). A run
+whose exchange cut rows raises RuntimeError at the next log line.
 """
 
 from __future__ import annotations
@@ -263,13 +271,24 @@ def cmd_train(args):
         print(f"--fresh: removed the loop state in {args.checkpoint}",
               file=sys.stderr)
 
+    mesh = None
+    if args.gaussian_sharded:
+        from .parallel import make_mesh
+
+        mesh = make_mesh()
+        if mesh.shape["tile"] < 2:
+            print("--gaussian-sharded: one rank; training the replicated "
+                  "loop (start it under torchrun with --multihost to shard)",
+                  file=sys.stderr)
+
     def run_once(checkpoint_dir):
         return train(
             model, views, args.width, args.height,
             render_config=_config(args),
             loop=TrainLoopConfig(iterations=args.iterations),
             checkpoint_dir=checkpoint_dir,
-            checkpoint_every=args.checkpoint_every, device=device)
+            checkpoint_every=args.checkpoint_every, device=device,
+            mesh=mesh)
 
     if args.restarts:
         # checkpoint-restart: a transient failure resumes from the newest
@@ -278,13 +297,18 @@ def cmd_train(args):
                                           max_restarts=args.restarts)
     else:
         state, dstate = run_once(args.checkpoint)
+    if mesh is not None and mesh.shape["tile"] > 1:
+        from .parallel import gather_sharded_model
+
+        final = gather_sharded_model(state.model, dstate.alive, mesh)
+    else:
+        final = compact(state.model, dstate)
     if dist.is_initialized():
         # every rank trained the same replicated loop (as the JAX CLI's
-        # ranks do); rank 0 writes the outputs
+        # ranks do), or its shard of the model; rank 0 writes the outputs
         dist.destroy_process_group()
         if rank:
             return
-    final = compact(state.model, dstate)
     save_ply(final, args.out)
     print(f"saved {final.num_gaussians} gaussians → {args.out}",
           file=sys.stderr)
@@ -406,6 +430,13 @@ def main(argv=None):
     sp.add_argument("--multihost", action="store_true",
                     help="join torchrun's process group before training "
                     "(a no-op without a coordinator)")
+    sp.add_argument("--gaussian-sharded", dest="gaussian_sharded",
+                    nargs="?", const="banded", choices=("banded",),
+                    help="with --multihost, shard the gaussians, their Adam "
+                    "moments and densification statistics over the ranks "
+                    "(train's Gaussian-sharded arena): each rank receives "
+                    "the splats that touch its band of tile rows; no "
+                    "densification round, opacity reset or --checkpoint")
     sp.add_argument("--restarts", type=int, default=0,
                     help="checkpoint-restart retries after a transient "
                     "failure (needs --checkpoint)")

@@ -481,6 +481,7 @@ class CompositeTilesFn(torch.autograd.Function):
         return tuple(out)
 
     @staticmethod
+    @tracing.spanned("composite_bwd")
     def backward(ctx, d_rgba, _d_log_t, _d_last):
         fields, tile_ids, final_log_t, last_idx = ctx.saved_tensors
         bins, width, height, config = ctx.frame

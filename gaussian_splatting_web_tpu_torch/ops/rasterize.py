@@ -449,9 +449,10 @@ def composite_tiles_auto(splats: ProjectedSplats, tile_ids: torch.Tensor,
         raise ValueError(f"gx={gx} is not the frame's {width}x{height} grid")
     bins = bin_splats(splats, width, height, config)
     ts = config.tile_size
-    tiles = composite_tiles_subset(pack_splat_fields(splats, config), bins,
-                                   tile_ids.to(torch.int32), width, height,
-                                   config)
+    with tracing.span("composite"):
+        tiles = composite_tiles_subset(pack_splat_fields(splats, config),
+                                       bins, tile_ids.to(torch.int32), width,
+                                       height, config)
     return tiles.reshape(-1, ts, ts, 4)
 
 

@@ -10,7 +10,9 @@ from .gaussian_sharded import (
     banded_candidates_a2a,
     banded_cap_hop,
     banded_tile_rows,
+    gather_sharded_model,
     init_sharded_train_state,
+    make_gaussian_sharded_densify_step,
     make_gaussian_sharded_train_step,
     render_gaussian_sharded,
     render_gaussian_sharded_banded,
@@ -29,8 +31,10 @@ __all__ = [
     "banded_candidates_a2a",
     "banded_cap_hop",
     "banded_tile_rows",
+    "gather_sharded_model",
     "init_sharded_train_state",
     "initialize_multihost",
+    "make_gaussian_sharded_densify_step",
     "make_gaussian_sharded_train_step",
     "make_mesh",
     "make_sharded_train_step",

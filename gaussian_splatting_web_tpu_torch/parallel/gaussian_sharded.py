@@ -48,8 +48,10 @@ from ..models.gaussian_model import PARAMS, GaussianModel
 from ..ops.projection import ProjectedSplats, project_gaussians
 from ..ops.rasterize import assemble_image, composite_tiles_auto
 from ..ops.sort import _footprints
+from ..train.densify import DensifyState, accumulate_stats
 from ..train.loss import full_f32, photometric_loss
 from ..train.trainer import TrainState, make_optimizer
+from ..utils import tracing
 from .mesh import AXES, Mesh
 from .render_sharded import dealt_to_image, gather_tiles, shard_tile_ids
 from .train_sharded import _all_reduce_sum, local_batch, reduce_and_apply
@@ -113,6 +115,9 @@ def _all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     blocks received, in source order."""
     if mesh.tile_group is None:
         return x
+    s = mesh.shape[AXES.tile]
+    tracing.count("exchange.bytes_off",
+                  x.numel() * x.element_size() * (s - 1) // s)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=mesh.tile_group)
     return out
@@ -297,6 +302,11 @@ def banded_candidates_a2a(splats_shard: ProjectedSplats, width: int,
     rows = _all_to_all(send.reshape(s * cap_hop, ROW), mesh)
     over = (torch.clamp(cnt - cap_hop, min=0).sum()
             + torch.clamp(nb - bmax, min=0).sum().to(torch.int64))
+    tracing.count("exchange.slots", s * cap_hop)
+    tracing.count_device("exchange.live_rows",
+                         torch.clamp(cnt, max=cap_hop).sum())
+    tracing.count_device("exchange.band_max", cnt.max())
+    tracing.count_device("exchange.overflow", over)
     return Candidates(rows, over, torch.where(ok, slots, -1), bmax)
 
 
@@ -406,6 +416,114 @@ def render_gaussian_sharded_banded(
 # --- training ----------------------------------------------------------------
 
 
+class _ShardedLoss:
+    """The work both Gaussian-sharded steps share, on this rank's shard:
+    per camera, project the shard (with `stats`, plus a zero `vs_aux`
+    [n_s, 2] on the means, whose gradient is d loss / d mean2d of the
+    owned rows), pack and send the rows (the ring's all-gather or the
+    banded candidates), composite this rank's tiles from a detached leaf of
+    the rows received, gather the other ranks' tiles into the full image,
+    and take the loss; then the backward to the leaves, their gradients
+    back to the owners, and each rank's own projection backward. Leaves
+    the shard's gradients in .grad → (loss, overflow [] int64 on the
+    device, [(vs_aux, splats)] per camera when `stats`)."""
+
+    def __init__(self, width, height, mesh, config, lambda_dssim, banded,
+                 cand_factor, stream):
+        self.width, self.height, self.mesh = width, height, mesh
+        self.config, self.lambda_dssim = config, lambda_dssim
+        self.banded, self.cand_factor, self.stream = (banded, cand_factor,
+                                                      stream)
+        gx, gy = config.grid_size(width, height)
+        self.gx = gx
+        n_tile = mesh.shape[AXES.tile]
+        if banded:
+            self.select = _select(stream)
+            self.rows_per = banded_tile_rows(gy, n_tile)
+            band_tiles, per_band, per = banded_band_tiles(width, height,
+                                                          n_tile, config)
+            self.mine = band_tiles[mesh.tile_index * per:
+                                   (mesh.tile_index + 1) * per]
+
+            def layout(tiles, s):
+                return _band_image(tiles, s, per_band, width, height, gx, gy)
+        else:
+            self.mine = shard_tile_ids(gx * gy, n_tile, config.tile_chunk,
+                                       mesh.tile_index)
+
+            def layout(tiles, s):
+                return dealt_to_image(tiles, s, width, height, gx, gy)
+        self.layout = layout
+        self.bg = torch.tensor(config.background, dtype=torch.float32)
+
+    def _send(self, splats, n_s):
+        """The rows this rank composites from, and the way back of their
+        gradients → (rows, overflow or None, back)."""
+        mesh, n_tile = self.mesh, self.mesh.shape[AXES.tile]
+        if not self.banded:
+            rows = ring_all_gather(_pack_splat_rows(splats).detach(), mesh)
+            return rows, None, partial(_reduce_scatter, mesh=mesh)
+        cand = self.select(splats, self.width, self.height, mesh,
+                           self.rows_per,
+                           banded_cap_hop(n_s * n_tile, n_tile,
+                                          self.cand_factor), self.config)
+        back = (partial(_return_a2a, back=cand.back, bmax=cand.bmax,
+                        n_s=n_s, mesh=mesh) if self.stream == "a2a"
+                else partial(_return_ring, back=cand.back, n_s=n_s,
+                             mesh=mesh))
+        return cand.rows, cand.overflow, back
+
+    def __call__(self, model: GaussianModel, cameras, targets,
+                 sh_degree: Optional[int], stats: bool = False):
+        dev = model.device
+        n_s = model.num_gaussians
+        config, width, height = self.config, self.width, self.height
+        owned: List[torch.Tensor] = []   # each camera's own rows (autograd)
+        leaves = []                      # (leaf, its gradient → owned rows)
+        aux = []
+        total = 0.0
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        with tracing.span("projection"):
+            cloud = model.to_cloud(sh_degree)
+        for camera, target in zip(cameras, targets):
+            splats = project_gaussians(cloud, camera.to(dev), width, height,
+                                       config)
+            if stats:
+                with tracing.span("projection"):
+                    vs_aux = torch.zeros((n_s, 2), dtype=torch.float32,
+                                         device=dev, requires_grad=True)
+                    splats = dataclasses.replace(
+                        splats, mean2d=splats.mean2d + vs_aux)
+                aux.append((vs_aux, splats))
+            with tracing.span("exchange"):
+                owned.append(_pack_splat_rows(splats))
+                rows, over, back = self._send(splats, n_s)
+                if over is not None:
+                    overflow = overflow + over
+            leaf = rows.detach().requires_grad_(True)
+            leaves.append((leaf, back))
+            local = composite_tiles_auto(_unpack_splat_rows(leaf),
+                                         self.mine.to(dev), width, height,
+                                         config, self.gx)
+            with tracing.span("gather"):
+                out = _full_image(local, self.mesh, self.layout)
+            with tracing.span("composite"):
+                img = out[..., :3] + (1.0 - out[..., 3:4]) * self.bg.to(dev)
+            total = total + photometric_loss(img, target.to(dev),
+                                             self.lambda_dssim)
+        loss = total / len(cameras)
+        with tracing.span("backward"):
+            loss.backward()
+        with tracing.span("return"):
+            grads = [back(leaf.grad if leaf.grad is not None
+                          else torch.zeros_like(leaf))
+                     for leaf, back in leaves]
+        with tracing.span("backward"):
+            # each rank's own projection backward
+            torch.autograd.backward(owned, grads)
+        return loss, overflow, aux
+
+
 def make_gaussian_sharded_train_step(
     width: int,
     height: int,
@@ -438,73 +556,106 @@ def make_gaussian_sharded_train_step(
     loss / n_tile; aux["overflow"] sums the candidate overflow over the
     local cameras, 'tile' and 'data'. Turns TF32 off (`loss.full_f32`)."""
     full_f32()
-    gx, gy = config.grid_size(width, height)
-    n_tile = mesh.shape[AXES.tile]
-    if banded:
-        select = _select(stream)
-        rows_per = banded_tile_rows(gy, n_tile)
-        band_tiles, per_band, per = banded_band_tiles(width, height, n_tile,
-                                                      config)
-        mine = band_tiles[mesh.tile_index * per:(mesh.tile_index + 1) * per]
-
-        def layout(tiles, s):
-            return _band_image(tiles, s, per_band, width, height, gx, gy)
-    else:
-        mine = shard_tile_ids(gx * gy, n_tile, config.tile_chunk,
-                              mesh.tile_index)
-
-        def layout(tiles, s):
-            return dealt_to_image(tiles, s, width, height, gx, gy)
-    bg = torch.tensor(config.background, dtype=torch.float32)
+    core = _ShardedLoss(width, height, mesh, config, lambda_dssim, banded,
+                        cand_factor, stream)
 
     def step(state: TrainState, cameras: Sequence[CameraParams],
              targets: torch.Tensor):
         cameras, targets = local_batch(cameras, targets, mesh)
-        dev = state.model.device
-        n_s = state.model.num_gaussians
         state.optimizer.zero_grad(set_to_none=True)
-        cloud = state.model.to_cloud(active_sh_degree)
-        owned: List[torch.Tensor] = []   # each camera's own rows (autograd)
-        leaves = []                      # (leaf, its gradient → owned rows)
-        total = 0.0
-        overflow = torch.zeros((), dtype=torch.int64, device=dev)
-        for camera, target in zip(cameras, targets):
-            splats = project_gaussians(cloud, camera.to(dev), width, height,
-                                       config)
-            owned.append(_pack_splat_rows(splats))
-            if not banded:
-                rows = ring_all_gather(owned[-1].detach(), mesh)
-                back = partial(_reduce_scatter, mesh=mesh)
-            else:
-                cand = select(splats, width, height, mesh, rows_per,
-                              banded_cap_hop(n_s * n_tile, n_tile,
-                                             cand_factor), config)
-                rows, overflow = cand.rows, overflow + cand.overflow
-                back = (partial(_return_a2a, back=cand.back, bmax=cand.bmax,
-                                n_s=n_s, mesh=mesh) if stream == "a2a"
-                        else partial(_return_ring, back=cand.back, n_s=n_s,
-                                     mesh=mesh))
-            leaf = rows.detach().requires_grad_(True)
-            leaves.append((leaf, back))
-            local = composite_tiles_auto(_unpack_splat_rows(leaf),
-                                         mine.to(dev), width, height, config,
-                                         gx)
-            out = _full_image(local, mesh, layout)
-            img = out[..., :3] + (1.0 - out[..., 3:4]) * bg.to(dev)
-            total = total + photometric_loss(img, target.to(dev),
-                                             lambda_dssim)
-        loss = total / len(cameras)
-        loss.backward()
-        # the leaves' gradients back to the owners, then each rank's own
-        # projection backward
-        torch.autograd.backward(owned, [
-            back(leaf.grad if leaf.grad is not None
-                 else torch.zeros_like(leaf))
-            for leaf, back in leaves])
-
+        loss, overflow, _ = core(state.model, cameras, targets,
+                                 active_sh_degree)
         reported = reduce_and_apply(state, loss, mesh, tile_sum=False)
         _all_reduce_sum(overflow, mesh.tile_group)
         _all_reduce_sum(overflow, mesh.data_group)
         return state, reported, {"overflow": overflow}
 
     return step
+
+
+class GaussianShardedStep:
+    """The training step `train()` takes on a Gaussian-sharded arena (see
+    `make_gaussian_sharded_densify_step`). `overflow` is the sum over the
+    steps taken of each step's candidate overflow over every 'tile' rank,
+    and `last_overflow` the last step's; both stay on the device (None
+    before the first step)."""
+
+    def __init__(self, width, height, mesh, config, lambda_dssim, banded,
+                 cand_factor, stream):
+        if mesh.shape[AXES.data] != 1:
+            raise ValueError("the Gaussian-sharded training step takes one "
+                             "camera a step: the mesh's 'data' axis must be "
+                             f"1, got {mesh.shape[AXES.data]}")
+        full_f32()
+        self.mesh = mesh
+        self.half_viewport = (width * 0.5, height * 0.5)
+        self.core = _ShardedLoss(width, height, mesh, config, lambda_dssim,
+                                 banded, cand_factor, stream)
+        self.overflow: Optional[torch.Tensor] = None
+        self.last_overflow: Optional[torch.Tensor] = None
+
+    @tracing.spanned("step")
+    def __call__(self, state: TrainState, dstate: DensifyState,
+                 camera: CameraParams, target: torch.Tensor, sh_degree: int):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, overflow, aux = self.core(state.model, [camera], [target],
+                                        sh_degree, stats=True)
+        with tracing.span("adam"):
+            reported = reduce_and_apply(state, loss, self.mesh,
+                                        tile_sum=False)
+        overflow = _all_reduce_sum(overflow, self.mesh.tile_group)
+        self.last_overflow = overflow
+        self.overflow = (overflow.clone() if self.overflow is None
+                         else self.overflow.add_(overflow))
+        # densification pressure of the owned rows in INRIA's units, as
+        # `train_loop.make_densify_train_step` accumulates it
+        vs_aux, splats = aux[0]
+        dstate = accumulate_stats(
+            dstate, vs_aux.grad * vs_aux.new_tensor(self.half_viewport),
+            splats.valid, radius2d=splats.radius.detach())
+        return state, dstate, reported
+
+
+def make_gaussian_sharded_densify_step(
+    width: int,
+    height: int,
+    mesh: Mesh,
+    config: RenderConfig = RenderConfig(),
+    lambda_dssim: float = 0.2,
+    banded: bool = True,
+    cand_factor: float = 2.5,
+    stream: str = "a2a",
+) -> GaussianShardedStep:
+    """The step `train()` takes when its mesh's 'tile' axis is greater than
+    1: (state, dstate, camera, target, sh_degree) → (state, dstate, loss),
+    as `train_loop.make_densify_train_step`, over this rank's shard
+    (`init_sharded_train_state`) and its DensifyState rows. The
+    per-camera work is `make_gaussian_sharded_train_step`'s, the banded a2a
+    stream by default; `vs_aux` on the owned rows' means gives
+    `accumulate_stats` the view-space gradients of this rank's own rows.
+    The loss is the same on every rank. The overflow stays on the device
+    (`GaussianShardedStep.overflow`): the step makes no host sync of its
+    own. Turns TF32 off (`loss.full_f32`)."""
+    return GaussianShardedStep(width, height, mesh, config, lambda_dssim,
+                               banded, cand_factor, stream)
+
+
+def shard_densify_state(dstate: DensifyState, mesh: Mesh) -> DensifyState:
+    """This 'tile' rank's rows of a DensifyState (`shard_model`'s rows)."""
+    s = mesh.shape[AXES.tile]
+    n_s = dstate.capacity // s
+    rows = slice(mesh.tile_index * n_s, (mesh.tile_index + 1) * n_s)
+    return DensifyState(**{
+        f.name: None if getattr(dstate, f.name) is None
+        else getattr(dstate, f.name)[rows].clone()
+        for f in dataclasses.fields(dstate)})
+
+
+def gather_sharded_model(model: GaussianModel, alive: torch.Tensor,
+                         mesh: Mesh) -> GaussianModel:
+    """Every 'tile' rank's shard gathered in shard order, the live rows
+    only, on every rank of the group: the whole trained model."""
+    keep = ring_all_gather(alive.to(model.device), mesh)
+    return GaussianModel(*(ring_all_gather(getattr(model, f).detach(),
+                                           mesh)[keep]
+                           for f in PARAMS)).to(model.device)

@@ -63,21 +63,26 @@ def reduce_and_apply(state: TrainState, loss: torch.Tensor, mesh: Mesh,
     """The end of a sharded step on every rank: the parameter gradients in
     .grad are summed over 'tile' (when `tile_sum`; a Gaussian-sharded
     step's shard gradients already hold every tile's part) and averaged
-    over 'data', one flat all-reduce each; Adam takes one step. Returns
-    JAX's reported loss: the mean over the data ranks of the sum over the
-    tile ranks of loss / n_tile."""
+    over 'data', one flat all-reduce each (no copy when neither reduces
+    over more than one rank: a Gaussian-sharded step on a 1 x S mesh);
+    Adam takes one step. Returns JAX's reported loss: the mean over the
+    data ranks of the sum over the tile ranks of loss / n_tile."""
     n_tile = mesh.shape[AXES.tile]
     n_data = mesh.shape[AXES.data]
     params = list(state.model.parameters())
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    if tile_sum:
-        _all_reduce_sum(flat, mesh.tile_group)
-    _all_reduce_sum(flat, mesh.data_group)
-    flat /= n_data
-    for p, g in zip(params, flat.split([q.numel() for q in params])):
-        p.grad = g.view_as(p).clone()
+    if (tile_sum and n_tile > 1) or n_data > 1:
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        if tile_sum:
+            _all_reduce_sum(flat, mesh.tile_group)
+        _all_reduce_sum(flat, mesh.data_group)
+        flat /= n_data
+        for p, g in zip(params, flat.split([q.numel() for q in params])):
+            p.grad = g.view_as(p).clone()
+    else:
+        for p, g in zip(params, grads):
+            p.grad = g
     apply_gradients(state)
 
     reported = (loss.detach() / n_tile).reshape(1)

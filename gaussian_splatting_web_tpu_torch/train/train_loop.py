@@ -157,6 +157,72 @@ def make_densify_train_step(width: int, height: int, config: RenderConfig,
     return step
 
 
+def _refuse_on_sharded_arena(loop: TrainLoopConfig,
+                             checkpoint_dir: Optional[str]) -> None:
+    """What a Gaussian-sharded arena cannot do yet raises here, before the
+    first step, rather than doing the wrong thing: a densification round
+    (it clones, splits and prunes rows of one rank's shard, and the load
+    between ranks would need rebalancing), an opacity reset (its moments
+    reset is per shard) and the loop state's checkpoint (it would have to
+    be written and read per shard)."""
+    why = " is not implemented on a Gaussian-sharded arena"
+    if checkpoint_dir:
+        raise NotImplementedError(
+            "a checkpoint of the loop state" + why + ": each rank holds only "
+            "its shard of the model, its Adam moments and its DensifyState, "
+            "and per-shard checkpoints are not written yet")
+    its = range(1, loop.iterations + 1)
+    if any(loop.densify_from <= it <= loop.densify_until
+           and it % loop.densify_every == 0 for it in its):
+        raise NotImplementedError(
+            "a densification round" + why + ": clones, splits and prunes "
+            "would change each shard's rows, and the load between ranks "
+            "needs rebalancing (set densify_from past the last iteration)")
+    if any(it % loop.opacity_reset_every == 0 for it in its):
+        raise NotImplementedError(
+            "an opacity reset" + why + " (set opacity_reset_every past the "
+            "last iteration)")
+
+
+def _raise_on_overflow(step_fn, it: int) -> None:
+    """A band of the Gaussian-sharded exchange takes at most `cand_factor`
+    times its even share of one shard's rows; the rows past that are left
+    out of the frame and get no gradient. `step_fn.overflow` counts them
+    on the device, summed over the ranks and the steps, so every rank
+    reads the same count and raises together."""
+    cut = int(step_fn.overflow)
+    if cut:
+        raise RuntimeError(
+            f"the Gaussian-sharded exchange cut {cut} candidate rows by "
+            f"iteration {it}: they were left out of their frames and got no "
+            "gradient. A band took more than its share of one rank's rows; "
+            "give every rank at least one row of tiles (a taller frame) or "
+            "shard over fewer ranks")
+
+
+def _sharded_arena(model, mesh, dev, extent, width, height, render_config,
+                   loop):
+    """This rank's shard of the arena (N padded with dead rows to a
+    multiple of the 'tile' size), its optimizer and DensifyState, and the
+    Gaussian-sharded step → (state, dstate, step_fn)."""
+    from ..parallel.gaussian_sharded import (
+        init_sharded_train_state,
+        make_gaussian_sharded_densify_step,
+        shard_densify_state,
+    )
+
+    s = mesh.shape["tile"]
+    n = model.num_gaussians
+    params, dstate = pad_to_capacity(
+        GaussianModel(*(getattr(model, f).detach().to(dev) for f in PARAMS)),
+        n + (-n % s))
+    state = init_sharded_train_state(
+        params, mesh, lambda m: make_optimizer(m, scene_extent=extent))
+    step_fn = make_gaussian_sharded_densify_step(
+        width, height, mesh, render_config, loop.lambda_dssim)
+    return state, shard_densify_state(dstate, mesh), step_fn
+
+
 def train(
     model,
     views: List[View],
@@ -168,6 +234,7 @@ def train(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     device="cuda",
+    mesh=None,
 ):
     """Run the full training loop on `device`. Returns (state, dstate).
 
@@ -177,23 +244,42 @@ def train(
     is > 0. The view-sampling RNG restarts from `loop.seed` on resume.
     In a process group every rank trains the same replicated loop: rank 0
     alone writes the loop state, and every rank waits at a barrier before
-    it looks for one to resume from."""
+    it looks for one to resume from.
+
+    With a `mesh` (`parallel.make_mesh`) whose 'tile' axis S is greater
+    than 1, the arena is Gaussian-sharded instead: N is padded with dead
+    rows to a multiple of S, each rank holds its N/S rows, their Adam
+    moments and DensifyState (`parallel.shard_model`,
+    `init_sharded_train_state`), and every rank takes
+    `parallel.make_gaussian_sharded_densify_step` on the same view order
+    (its banded a2a exchange). The state
+    returned is this rank's shard (`parallel.gather_sharded_model` gathers
+    the model). Densification rounds, opacity resets and `checkpoint_dir`
+    raise NotImplementedError on that path (`_refuse_on_sharded_arena`),
+    and a run whose exchange cut rows raises RuntimeError at the next log
+    line or after the last step (`_raise_on_overflow`)."""
     dev = resolve_device(device)
     extent = scene_extent(views)
-    capacity = int(model.num_gaussians * loop.capacity_factor)
-    params, dstate = pad_to_capacity(   # leaves the caller's model alone
-        GaussianModel(*(getattr(model, f).detach().to(dev) for f in PARAMS)),
-        capacity)
-    state = TrainState(model=params,
-                       optimizer=make_optimizer(params, scene_extent=extent))
-    step_fn = make_densify_train_step(width, height, render_config,
-                                      loop.lambda_dssim)
+    sharded = mesh is not None and mesh.shape["tile"] > 1
+    if sharded:
+        _refuse_on_sharded_arena(loop, checkpoint_dir)
+        state, dstate, step_fn = _sharded_arena(
+            model, mesh, dev, extent, width, height, render_config, loop)
+    else:
+        capacity = int(model.num_gaussians * loop.capacity_factor)
+        params, dstate = pad_to_capacity(   # leaves the caller's model alone
+            GaussianModel(*(getattr(model, f).detach().to(dev)
+                            for f in PARAMS)), capacity)
+        state = TrainState(model=params, optimizer=make_optimizer(
+            params, scene_extent=extent))
+        step_fn = make_densify_train_step(width, height, render_config,
+                                          loop.lambda_dssim)
     generator = torch.Generator().manual_seed(loop.seed)
     rng = np.random.default_rng(loop.seed)
     targets = [torch.as_tensor(np.asarray(v.image, np.float32), device=dev)
                for v in views]
     cameras = [v.camera.to(dev) for v in views]
-    max_sh = params.max_sh_degree
+    max_sh = state.model.max_sh_degree
 
     it = 0
     writer = not dist.is_initialized() or dist.get_rank() == 0
@@ -245,8 +331,10 @@ def train(
                 and it % checkpoint_every == 0):
             save_loop_state(state, dstate, it, checkpoint_dir)
 
-        if it % loop.log_every == 0:
-            alive = int(dstate.alive.sum())
+        if it % loop.log_every == 0 and (writer or not sharded):
+            # rank 0 logs a sharded arena, where no round changes the rows
+            alive = (model.num_gaussians if sharded
+                     else int(dstate.alive.sum()))
             if on_log is not None:
                 on_log(it, float(loss), alive)
             else:
@@ -254,4 +342,6 @@ def train(
                       f"gaussians {alive}  sh {sh_degree}  "
                       f"{(time.time() - t0) / (it - start_it) * 1e3:.0f} "
                       "ms/it", file=sys.stderr)
+        if sharded and (it % loop.log_every == 0 or it == loop.iterations):
+            _raise_on_overflow(step_fn, it)   # a sync the log line makes
     return state, dstate
