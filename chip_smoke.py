@@ -11,10 +11,10 @@ the bench camera (eye (0, 0, -8) looking at the origin). Phases, each
 printing one line; any failure raises and exits non-zero:
 
   0 device   nvidia-smi name and power limit; a CUDA device is required
-  1 build    nvcc builds the five kernel sources (csrc/raster_fwd.cu,
+  1 build    nvcc builds the six kernel sources (csrc/raster_fwd.cu,
              raster_bwd.cu, anchor_fwd.cu, anchor_bwd.cu, which share
-             csrc/tile_walk.cuh, and the projection's project.cu), one
-             process each, started together
+             csrc/tile_walk.cuh, the projection's project.cu and
+             binning's bin.cu), one process each, started together
   2 kernel   kernel A vs its plain PyTorch twin on the same bins: an
              opaque early-exit scene, a 72x40 ragged frame, a 96x64
              adversarial scene (`bench_lib.make_adversarial_scene`:
@@ -141,7 +141,7 @@ The bench (`bench_lib.run`, `cli bench`) and the native PLY unpack:
              and B against their plain twins on the same bins) ran and is
              green, live pairs and overflow as phase 4 holds them, every
              roofline share in (0, 100], and the forward median within 25%
-             of the median of 5 frames timed as phase 4 times them, just
+             of the median of 20 frames timed as phase 4 times them, just
              before `run()`; the result dict on one line. The
              gate again with the kernel path's gradient scaled: by 1.1 at
              1080p and by 1.01 on 20,000 splats at 320x240 it must be red
@@ -166,8 +166,21 @@ The projection's kernels (`csrc/project.cu`, `ops/cuda/project.py`):
              point left out), the rules of tests/test_torch_project_cuda.py;
              P=2 and P-bwd=1 launches; both timed alone and their twins
 
+Binning's kernels (`csrc/bin.cu`, `ops/cuda/bin.py`):
+
+ 23 binning  `bin_splats` (the CUDA kernels) against `bin_splats_plain`
+             (the PyTorch path) on the same projected splats at
+             `mipnerf360`'s 2.96M Gaussians and 1237x822, `tandt`'s 1.66M
+             and 979x546, and 1M at 1080p: every TileBins field equal bit
+             for bit, one launch and one host sync a call; both timed
+             whole (CUDA events around one call, median of 7) against
+             `bench_lib.binning_bytes` at 3.35 TB/s
+
 Every phase that renders or trains counts P and P bwd with the other
-kernels: one P launch a frame, one P and one P bwd launch a step.
+kernels: one P launch a frame, one P and one P bwd launch a step; and
+binning's calls ("bin"): one a frame or step that bins through
+`csrc/bin.cu` (the dup binning with single-tier duplication), none in the
+anchor and tiered modes.
 
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
@@ -230,6 +243,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -242,6 +256,7 @@ from gaussian_splatting_web_tpu_torch.bench_lib import (
     P_BWD_BYTES,
     P_FWD_BYTES,
     PROJ_INPUTS,
+    binning_bytes,
     bound,
     grad_parity,
     grad_parity_ok,
@@ -271,6 +286,7 @@ from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
 from gaussian_splatting_web_tpu_torch.ops import anchor, rasterize
 from gaussian_splatting_web_tpu_torch.ops.composite import post_process
 from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
+from gaussian_splatting_web_tpu_torch.ops.cuda import bin as bin_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.cuda import project as project_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
@@ -290,8 +306,10 @@ from gaussian_splatting_web_tpu_torch.ops.rasterize import (
 )
 from gaussian_splatting_web_tpu_torch.ops.sort import (
     bin_splats,
+    bin_splats_plain,
     float_to_sortable_uint,
     sort_key_bits,
+    takes_kernels,
 )
 from gaussian_splatting_web_tpu_torch.parallel import (
     banded_candidates,
@@ -353,6 +371,10 @@ PACKED_SLOTS, PACKED_PAIR_CAP = 3_450_000, 3_000_000
 ANCHOR_PACKED_PAIRS, ANCHOR_PACKED_OVERFLOW = 2_150_377, 248
 LOG_T_TOL = 1e-4          # the image rule and GRAD_EXTRA: bench_lib
 TILE_SHARDS, TILE_CHUNK = 4, 32   # phase 15's tile deal (the default chunk)
+# phase 23: the benchmark's two scene sizes and this run's frame
+BIN_SCENES = ((2_960_000, 1237, 822), (1_660_000, 979, 546), (N_SCENE, W, H))
+BIN_FIELDS = ("sorted_gidx", "sorted_slot", "tile_start", "tile_count",
+              "num_pairs", "overflow")
 KERNELS = {
     "raster_fwd": ("gaussian_splatting_web_tpu_torch/csrc/raster_fwd.cu",
                    "gaussian_splatting_web_tpu/ops/pallas/raster.py:219"),
@@ -378,8 +400,12 @@ KERNELS = {
     "project_bwd": ("gaussian_splatting_web_tpu_torch/csrc/project.cu",
                     "gaussian_splatting_web_tpu/ops/projection.py "
                     "project_gaussians's autodiff (XLA)"),
+    # no TPU kernel: the JAX package's binning is XLA
+    "bin": ("gaussian_splatting_web_tpu_torch/csrc/bin.cu",
+            "gaussian_splatting_web_tpu/ops/sort.py bin_splats (XLA)"),
 }
-SOURCES = ("raster_fwd", "raster_bwd", "anchor_fwd", "anchor_bwd", "project")
+SOURCES = ("raster_fwd", "raster_bwd", "anchor_fwd", "anchor_bwd", "project",
+           "bin")
 class SmokeFailure(RuntimeError):
     pass
 
@@ -391,13 +417,14 @@ def check(cond, msg):
 
 def launch_counts():
     """Launches of kernels A, B, C, D, of A's and B's tile-list entries
-    (E-A, E-B) and of the projection's P fwd and P bwd (P, P-bwd) since
-    the last reset."""
+    (E-A, E-B), of the projection's P fwd and P bwd (P, P-bwd) and calls
+    of binning's kernels (bin) since the last reset."""
     return {"A": raster_cuda.launches, "B": raster_cuda.launches_bwd,
             "C": anchor_cuda.launches, "D": anchor_cuda.launches_bwd,
             "E-A": raster_cuda.launches_tiles,
             "E-B": raster_cuda.launches_tiles_bwd,
-            "P": project_cuda.launches, "P-bwd": project_cuda.launches_bwd}
+            "P": project_cuda.launches, "P-bwd": project_cuda.launches_bwd,
+            "bin": bin_cuda.launches}
 
 
 def reset_counts():
@@ -405,6 +432,14 @@ def reset_counts():
     raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
     anchor_cuda.launches = anchor_cuda.launches_bwd = 0
     project_cuda.launches = project_cuda.launches_bwd = 0
+    bin_cuda.launches = 0
+
+
+def binned_by_kernels(cfg, kernels):
+    """("bin",) where `kernels` holds A (or E-A), whose bins `bin_splats`
+    makes with csrc/bin.cu under cfg (single-tier duplication), else ()."""
+    return (("bin",) if "A" in kernels
+            and takes_kernels(torch.device("cuda"), cfg) else ())
 
 
 def median_ms(fn, runs, warmup=2, repeat=1):
@@ -864,7 +899,7 @@ def sharded_step_check(step, state, ref, what):
     check(parity["ok"], f"{what}: loss {loss} vs unsharded {ref[2]} (rel "
           f"{parity['rel']:.2e}), gradients {parity['stats']}")
     check(counts == {**{k: 0 for k in counts}, "E-A": 2, "E-B": 2, "P": 2,
-                     "P-bwd": 2},
+                     "P-bwd": 2, "bin": 2},
           f"{what} on two views launched {counts}")
     return counts, step_ms, loss, parity
 
@@ -883,7 +918,7 @@ def phase_sharded(dev, cloud, cfg, frame, mesh, ref):
     check(torch.equal(rgb, frame), "render_sharded on one rank "
           "differs from render")
     check(render_counts == {**{k: 0 for k in render_counts}, "E-A": 1,
-                            "P": 1},
+                            "P": 1, "bin": 1},
           f"render_sharded launched {render_counts}")
     model = GaussianModel.from_cloud(cloud)
     state = TrainState(model, make_optimizer(model))
@@ -931,7 +966,8 @@ def phase_gaussian_sharded(dev, cloud, cfg, frame, mesh, ref):
         check(torch.equal(rgb, frame), f"Gaussian-sharded {name} render on "
               "one rank differs from render")
         check(over == 0, f"Gaussian-sharded {name} render: overflow {over}")
-        check(counts == {**{k: 0 for k in counts}, "E-A": 1, "P": 1},
+        check(counts == {**{k: 0 for k in counts}, "E-A": 1, "P": 1,
+                         "bin": 1},
               f"Gaussian-sharded {name} render launched {counts}")
         times = []
         for _ in range(3):
@@ -1015,7 +1051,8 @@ def phase_config(dev, cloud, cfg, frame):
         img_d, _ = render(cloud, camera, W, H, cfg_d)
         got = rasterize_tiles(splats, bins, W, H, cfg_d)
         counts = launch_counts()
-        check(counts == {**{c: 0 for c in counts}, "A": 2, "P": 1},
+        check(counts == {**{c: 0 for c in counts}, "A": 2, "P": 1,
+                         "bin": 1},
               f"debug_selected renders launched {counts}")
         check(torch.equal(img_d, got.rgb), "debug_selected: render and "
               "rasterize_tiles differ")
@@ -1031,7 +1068,8 @@ def phase_config(dev, cloud, cfg, frame):
         reset_counts()
         img_b, aux_b = render(cloud, camera, W, H, cfg_b)
         counts_b = launch_counts()
-        check(counts_b == {**{c: 0 for c in counts_b}, "A": 1, "P": 1},
+        check(counts_b == {**{c: 0 for c in counts_b}, "A": 1, "P": 1,
+                           "bin": 1},
               f"bf16 render launched {counts_b}")
         splats_b = project_gaussians(bf, camera, W, H, cfg)
         bins_b = bin_splats(splats_b, W, H, cfg)
@@ -1053,8 +1091,8 @@ def phase_config(dev, cloud, cfg, frame):
           f"abs err {err_d['max_abs_err']:.3e}, {changed} pixels changed; "
           f"dtype=bfloat16 through A vs its twin on the bf16 inputs: max abs "
           f"err {err_b['max_abs_err']:.3e}; vs the f32 frame mean |diff| "
-          f"{mean:.2e}, p99 {p99:.2e} (bound 5e-3, 0.05); launches A=2 P=1 and "
-          "A=1 P=1")
+          f"{mean:.2e}, p99 {p99:.2e} (bound 5e-3, 0.05); launches A=2 P=1 "
+          "bin=1 and A=1 P=1 bin=1")
 
 
 def phase_packed(dev, cloud, frame, exact):
@@ -1211,10 +1249,11 @@ def phase_bench(dev, cloud):
     The bench's forward median is held against phase 4's frame timing
     taken again just before it: the host's speed drifts between phases a
     minute apart (on one H100, phase 4's median read 8.7-12.5 ms across
-    runs of one tree)."""
+    runs of one tree), and a 2.5-ms frame, much of it host time, swings by
+    up to a fifth from call to call, so both medians take 20 frames."""
     with torch.no_grad():
         frame_ms = statistics.median(timed_frames(
-            cloud, bench_camera(W, H, dev), RenderConfig(), 5)[3])
+            cloud, bench_camera(W, H, dev), RenderConfig(), 20)[3])
     result = bench_lib.run(emit_json=False)
     check(result["parity_gate_ok"] is True,
           f"bench: the gradient-parity gate is not green: {result}")
@@ -1523,7 +1562,9 @@ def phase_render(dev, cloud, cfg, frames=5, ref=None, label=None,
         img, aux, rgba, stages["frame"] = timed_frames(cloud, camera, cfg,
                                                        frames)
         counts = launch_counts()
-    check(counts == {k: frames * (k in (kernel, "P")) for k in counts},
+    check(counts == {k: frames * (k in (kernel, "P",
+                                        *binned_by_kernels(cfg, kernel)))
+                     for k in counts},
           f"render launched {counts} in {frames} frames")
     check(img.shape == (H, W, 3) and rgba.shape == (H, W, 4), "frame shape")
     check(bool(torch.isfinite(rgba).all()), "non-finite frame")
@@ -1621,6 +1662,64 @@ def phase_project(dev, cloud, cfg, label="22 project"):
                  for r in results)
 
 
+def count_syncs(fn):
+    """fn() with the synchronising CUDA calls it makes counted
+    (`torch.cuda.set_sync_debug_mode`'s warnings, but for its warning that
+    the mode is a prototype) → (result, count)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing" in str(c.message)
+                    for c in caught)
+
+
+def phase_binning(dev, label="23 binning"):
+    """`bin_splats` through csrc/bin.cu against `bin_splats_plain` on the
+    same splats at BIN_SCENES: equal bit for bit, one launch and one host
+    sync a call; both timed whole → the 1080p result for the JSON line."""
+    cfg = RenderConfig()
+    results, parts = [], []
+    for n, w, h in BIN_SCENES:
+        cloud = make_scene(n, seed=0, sh_degree=0, device=dev)
+        camera = bench_camera(w, h, dev)
+        with torch.no_grad():
+            splats = project_gaussians(cloud, camera, w, h, cfg)
+        torch.cuda.synchronize()
+        reset_counts()
+        got, syncs = count_syncs(lambda: bin_splats(splats, w, h, cfg))
+        counts = launch_counts()
+        check(counts == {**{k: 0 for k in counts}, "bin": 1},
+              f"binning at {n} launched {counts}")
+        check(syncs == 1, f"binning at {n} made {syncs} host syncs")
+        want = bin_splats_plain(splats, w, h, cfg)
+        for f in BIN_FIELDS:
+            a, b = getattr(got, f), getattr(want, f)
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"binning at {n}: {f} differs from the PyTorch path")
+        ms = median_ms(lambda: bin_splats(splats, w, h, cfg), 7)
+        plain_ms = median_ms(lambda: bin_splats_plain(splats, w, h, cfg), 7)
+        kept, slots = int(got.num_pairs), got.sorted_slot.shape[0]
+        gx, gy = cfg.grid_size(w, h)
+        nbytes = binning_bytes(n, slots, kept, gx * gy)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_S
+        parts.append(f"{n} at {w}x{h}: {kept} of {slots} slots live, "
+                     f"kernels {ms:.3f} ms ({100 * bound_ms / ms:.1f}% of "
+                     f"the byte floor {bound_ms:.4f} ms, {nbytes} B), "
+                     f"PyTorch path {plain_ms:.3f} ms")
+        results.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes",
+                        "library_ms": None})
+        del cloud, splats, got, want
+    print(f"[{label}] bin_splats (csrc/bin.cu) equal to bin_splats_plain "
+          "bit for bit, every field; bin=1 and one host sync a call; "
+          "whole calls (CUDA events, median of 7): " + "; ".join(parts))
+    return results[-1]
+
+
 def phase_step(dev, cloud, cfg, steps=7, label="5 step", kernels="AB"):
     """Forward + backward through `render`, as a training step runs it;
     `kernels`, P and P-bwd launch once per step and no other does."""
@@ -1645,7 +1744,8 @@ def phase_step(dev, cloud, cfg, steps=7, label="5 step", kernels="AB"):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
-    check(counts == {k: steps * (k in (*kernels, "P", "P-bwd"))
+    check(counts == {k: steps * (k in (*kernels, "P", "P-bwd",
+                                       *binned_by_kernels(cfg, kernels)))
                      for k in counts},
           f"{steps} fwd+bwd steps launched {counts}")
     for name, t in leaves.items():
@@ -1685,7 +1785,8 @@ def phase_serve(dev, cloud, cfg, n_events=5, label="6 serve", kernel="A"):
         frame, _ = app.handle_event(ev)
         check(frame.shape == (720, 1280, 4), f"{ev['kind']}: {frame.shape}")
     counts = launch_counts()
-    check(counts == {k: len(events) * (k in (kernel, "P")) for k in counts},
+    check(counts == {k: len(events) * (k in (
+        kernel, "P", *binned_by_kernels(cfg, kernel))) for k in counts},
           f"serve launched {counts} in {len(events)} events")
     print(f"[{label}] ViewerApp 1280x720 ({cfg.binning} binning) answered "
           + ", ".join(e["kind"] for e in events)
@@ -1774,8 +1875,9 @@ def phase_train(dev, cfg, iterations=30, label="8 train", kernels="AB",
                           on_log=on_log, device=dev)
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    check(counts == {k: iterations * (k in (*kernels, "P", "P-bwd"))
-                     for k in counts},
+    check(counts == {k: iterations * (k in (
+        *kernels, "P", "P-bwd", *binned_by_kernels(cfg, kernels)))
+        for k in counts},
           f"train launched {counts} in {iterations} iterations")
     losses = [x[1] for x in log]
     check(len(losses) == iterations and all(map(math.isfinite, losses)),
@@ -1873,6 +1975,7 @@ def main():
         del afull
         _, med_a = phase_render(dev, cloud, cfg_a, ref=frame)
     p_fwd, p_bwd = phase_project(dev, cloud, cfg)
+    binning = phase_binning(dev)
     step_ms = phase_step(dev, cloud, cfg)
     step_a = phase_step(dev, cloud, cfg_a, label="13 anchor", kernels="CD")
     with torch.no_grad():
@@ -1900,12 +2003,13 @@ def main():
         phase_eval(capture)
     results = {"raster_fwd": fwd, "raster_bwd": bwd, "anchor_fwd": afwd,
                "anchor_bwd": abwd, **tiles, "project_fwd": p_fwd,
-               "project_bwd": p_bwd}
+               "project_bwd": p_bwd, "bin": binning}
     launches = {"raster_fwd": trained["A"], "raster_bwd": trained["B"],
                 "anchor_fwd": trained_a["C"], "anchor_bwd": trained_a["D"],
                 "raster_fwd_tiles": sharded["E-A"],
                 "raster_bwd_tiles": sharded["E-B"],
-                "project_fwd": trained["P"], "project_bwd": trained["P-bwd"]}
+                "project_fwd": trained["P"], "project_bwd": trained["P-bwd"],
+                "bin": trained["bin"]}
     print(f"[wall] {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -73,6 +73,17 @@ PROJ_GRAD_OUTPUTS = ("mean2d", "conic", "depth", "rgb", "opacity")
 # the gradients of mean2d, conic, rgb and opacity (36) and writes the 236
 # of the inputs' gradients.
 P_FWD_BYTES, P_BWD_BYTES = 236 + 45, 236 + 36 + 236
+# binning (csrc/bin.cu) reads a Gaussian's mean2d 8, conic 12, depth 4,
+# radius 4, opacity 4 and valid 1 bytes once, and writes sorted_slot's int64
+# for every slot, sorted_gidx's int32 for every kept pair and each tile's
+# int32 start and count
+BIN_READ_BYTES = 33
+
+
+def binning_bytes(n: int, slots: int, kept: int, num_tiles: int) -> int:
+    """Binning's byte floor: its inputs read once, its outputs written
+    once (the sort's passes over the live pairs are not counted)."""
+    return n * BIN_READ_BYTES + slots * 8 + kept * 4 + num_tiles * 8
 
 # peaks of one H100 SXM (NVIDIA data sheet; SFU: 16 results per SM per
 # clock at the 1.98 GHz boost clock)
@@ -585,7 +596,10 @@ def run(ply=None, width=1920, height=1080, n_synthetic=1_000_000,
                              config)
         img.sum().backward()
 
-    t_f = time_fn(forward, iters=8, device=dev)
+    # a 1080p frame takes about 2.5 ms, much of it the host's (launches,
+    # two host syncs), and its time swings by up to a fifth from call to
+    # call: 20 calls after 5 warm ones hold the median
+    t_f = time_fn(forward, iters=20, warmup=5, device=dev)
     t_b = time_fn(fwd_bwd, iters=6, device=dev)
     mpixps = throughput_mpixps(width, height, t_f["median"])
     _log(f"forward: {t_f['median'] * 1e3:.3f} ms (p90 "

@@ -24,6 +24,11 @@ sortable(depth) in the exact mode, and with `depth_bits > 0` JAX's packed
 `lax.sort` is not stable, so tied pairs may order differently there (with
 the packed key, pairs whose depths agree in their top b bits tie).
 
+`bin_splats` runs the CUDA kernels of `csrc/bin.cu` (`ops/cuda/bin.py`) for
+CUDA tensors with single-tier duplication, and `bin_splats_plain`, the
+PyTorch ops below, for CPU tensors and the tiered modes; both give the same
+bins bit for bit on the same tensors.
+
 Binning reads the unrounded projected splats; `quantize_bf16` and
 `quantize_mean16` are the roundings `pack_fields` and `pack_mean16` apply
 to the compositor's fields afterwards (straight-through gradients, as the
@@ -272,6 +277,22 @@ def sort_key_bits(num_tiles: int, config: RenderConfig) -> int:
     return max(min(config.depth_bits, 32 - tile_bits), 0)
 
 
+def gather_cap(n: int, slots: int, config: RenderConfig) -> int:
+    """Sorted pairs kept (JAX sort.py:421-444): factor·N, never below the
+    floor, never above the slots; every slot without a factor."""
+    if config.gather_cap_factor <= 0:
+        return slots
+    return min(slots, max(int(n * config.gather_cap_factor),
+                          config.gather_cap_floor))
+
+
+def takes_kernels(device: torch.device, config: RenderConfig) -> bool:
+    """Whether `bin_splats` runs csrc/bin.cu (`ops/cuda/bin.py`): CUDA
+    tensors with single-tier duplication. CPU tensors and the tiered modes
+    take `bin_splats_plain`."""
+    return device.type == "cuda" and not tier_widths(0, config)[1]
+
+
 @tracing.spanned("binning")
 @torch.no_grad()
 def bin_splats(
@@ -281,7 +302,24 @@ def bin_splats(
     config: RenderConfig,
 ) -> TileBins:
     """Bin projected splats into depth-sorted per-tile segments (no
-    gradient flows through binning); see the module docstring."""
+    gradient flows through binning); see the module docstring. CUDA tensors
+    with single-tier duplication take the CUDA kernels, the same bins bit
+    for bit; the rest takes `bin_splats_plain`."""
+    if takes_kernels(splats.depth.device, config):
+        from .cuda.bin import bin_splats_cuda
+
+        return bin_splats_cuda(splats, width, height, config)
+    return bin_splats_plain(splats, width, height, config)
+
+
+@torch.no_grad()
+def bin_splats_plain(
+    splats: ProjectedSplats,
+    width: int,
+    height: int,
+    config: RenderConfig,
+) -> TileBins:
+    """`bin_splats` in PyTorch ops, on any device, in every mode."""
     gx, gy = config.grid_size(width, height)
     num_tiles = gx * gy
     n = splats.depth.shape[0]
@@ -363,8 +401,7 @@ def bin_splats(
         # JAX sort.py:421-444: cut the sorted pairs at factor·N (never
         # below the floor, never above the slots); past the cap the
         # farthest tiles lose their deepest splats, counted in overflow
-        cap = min(tile.shape[0], max(int(n * config.gather_cap_factor),
-                                     config.gather_cap_floor))
+        cap = gather_cap(n, tile.shape[0], config)
         sorted_gidx = sorted_gidx[:cap]
         tile_count = torch.minimum(tile_count,
                                    torch.clamp(cap - tile_start, min=0))

@@ -34,6 +34,16 @@ in training). Each time is set against its byte floor at 3.35 TB/s:
 input byte read once and each output byte written once; "twin_ms" is the plain twin on the card on the
 same tensors (`project_gaussians_plain`, `project_backward_plain`), median
 of 7. Imports nothing of JAX.
+
+Binning (`ops/sort.py::bin_splats`) is timed whole, CUDA events around
+one call, median of 7, at `mipnerf360`'s 2.96M Gaussians at 1237x822,
+`tandt`'s 1.66M at 979x546 and 1M at 1920x1080 (the default exact key,
+`make_scene`'s SH-0 distribution from (0, 0, -8)): "ms" is `bin_splats`,
+which runs the CUDA kernels of `csrc/bin.cu` where the checkout has them,
+and, where it has them, "plain_ms" is `bin_splats_plain` (the PyTorch
+path) on the same tensors, whose bins must equal the kernels' bit for bit;
+`launches` is `ops/cuda/bin.py`'s count over one call.
+Each time is set against `bench_lib.binning_bytes` at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import torch
 
 W, H = 1920, 1080
 P_SCENES = ((2_960_000, 1237, 822), (1_660_000, 979, 546))
+BIN_SCENES = (*P_SCENES, (1_000_000, W, H))
 
 
 def median_ms(fn, runs=7, warmup=2, repeat=1):
@@ -161,7 +172,57 @@ def main():
                             "wrapper_ms": median_ms(wrappers[name]),
                             "sha256": digest(wrappers[name]())}
         result.update(projection_times(root, make_scene, default_camera))
+        result.update(binning_times(make_scene, default_camera))
     print(json.dumps(result))
+
+
+def binning_times(make_scene, default_camera) -> dict:
+    """`bin_splats` alone at BIN_SCENES, beside the PyTorch path on the
+    same tensors where the checkout has it (kernels and path equal bit for
+    bit), against the byte floor."""
+    from gaussian_splatting_web_tpu_torch import bench_lib
+    from gaussian_splatting_web_tpu_torch.config import RenderConfig
+    from gaussian_splatting_web_tpu_torch.ops import sort
+    from gaussian_splatting_web_tpu_torch.ops.projection import (
+        project_gaussians,
+    )
+
+    plain = getattr(sort, "bin_splats_plain", None)
+    try:
+        from gaussian_splatting_web_tpu_torch.ops.cuda import bin as bc
+    except ImportError:
+        bc = None
+    fields = ("sorted_gidx", "sorted_slot", "tile_start", "tile_count",
+              "num_pairs", "overflow")
+    out = {}
+    dev = torch.device("cuda")
+    cfg = RenderConfig()
+    for n, w, h in BIN_SCENES:
+        cloud = make_scene(n, seed=0, sh_degree=0, device=dev)
+        camera = default_camera(w, h, eye=(0, 0, -8),
+                                center=(0, 0, 0)).to(dev)
+        splats = project_gaussians(cloud, camera, w, h, cfg)
+        before = bc.launches if bc else 0
+        got = sort.bin_splats(splats, w, h, cfg)
+        row = {"launches": (bc.launches - before) if bc else None}
+        if plain is not None:
+            want = plain(splats, w, h, cfg)
+            row["equal"] = all(torch.equal(getattr(got, f), getattr(want, f))
+                               for f in fields)
+            row["plain_ms"] = median_ms(lambda: plain(splats, w, h, cfg))
+        ms = median_ms(lambda: sort.bin_splats(splats, w, h, cfg))
+        gx, gy = cfg.grid_size(w, h)
+        kept = int(got.num_pairs)
+        slots = got.sorted_slot.shape[0]
+        row.update(ms=ms, live_pairs=kept, slots=slots)
+        if hasattr(bench_lib, "binning_bytes"):
+            nbytes = bench_lib.binning_bytes(n, slots, kept, gx * gy)
+            floor_ms = 1e3 * nbytes / bench_lib.HBM_BYTES_S
+            row.update(bytes=nbytes, floor_ms=floor_ms,
+                       floor_pct=100 * floor_ms / ms)
+        out[f"binning {n / 1e6:.2f}M {w}x{h}"] = row
+        del cloud, splats, got
+    return out
 
 
 def projection_times(root, make_scene, default_camera) -> dict:

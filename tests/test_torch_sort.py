@@ -1,9 +1,12 @@
 """Port bin_splats vs the JAX package's, fed the SAME projected splats
 (converted from the JAX projection): tile offsets, counts, pair totals and
 every tile's gaussian-id segment must be identical. Covers the plain
-path, the centre shrink of oversized splats and the gather cap."""
+path, the centre shrink of oversized splats and the gather cap; and the
+rule that sends CUDA tensors with single-tier duplication to the CUDA
+kernels (`ops/cuda/bin.py`) and everything else to `bin_splats_plain`."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -23,9 +26,12 @@ from gaussian_splatting_web_tpu.ops.sort import (
 )
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.ops.projection import ProjectedSplats
+from gaussian_splatting_web_tpu_torch.ops.cuda import bin as bin_cuda
 from gaussian_splatting_web_tpu_torch.ops.sort import (
     bin_splats,
+    bin_splats_plain,
     float_to_sortable_uint,
+    takes_kernels,
 )
 from tests.conftest import make_random_cloud
 
@@ -101,3 +107,38 @@ def test_float_to_sortable_uint_matches_jax():
     got = float_to_sortable_uint(torch.from_numpy(vals)).numpy()
     np.testing.assert_array_equal(got, ref)
     assert np.all(np.diff(got[vals != 0]) > 0)
+
+
+@pytest.mark.parametrize("device,cfg,kernels", [
+    ("cuda", BASE, True),
+    ("cuda", BASE.replace(depth_bits=19, tile_cull=True), True),
+    ("cuda", BASE.replace(tier_split=16), True),     # d_a = max_dup: one tier
+    ("cuda", BASE.replace(depth_bits=19, tier_split=2), False),
+    ("cpu", BASE, False),
+    ("cpu", BASE.replace(depth_bits=19, tier_split=2), False),
+])
+def test_binning_route(device, cfg, kernels):
+    assert takes_kernels(torch.device(device), cfg) is kernels
+
+
+def test_cuda_splats_take_the_kernels(monkeypatch):
+    """A CUDA-resident single-tier call goes to `bin_splats_cuda` (stubbed:
+    this machine has no card); a tiered one would not."""
+    monkeypatch.setattr(bin_cuda, "bin_splats_cuda", lambda *a: "kernels")
+    on_card = types.SimpleNamespace(
+        depth=types.SimpleNamespace(device=torch.device("cuda")))
+    assert bin_splats(on_card, W, H, BASE) == "kernels"
+
+
+@pytest.mark.parametrize("cfg", [BASE, BASE.replace(depth_bits=19,
+                                                    tier_split=2)])
+def test_cpu_splats_take_the_plain_path(cfg):
+    cloud, _ = _scene("plain")
+    _, splats = _projected(cloud, cfg)
+    before = bin_cuda.launches
+    got = bin_splats(splats, W, H, cfg)
+    want = bin_splats_plain(splats, W, H, cfg)
+    assert bin_cuda.launches == before
+    for f in ("sorted_gidx", "sorted_slot", "tile_start", "tile_count",
+              "num_pairs", "overflow"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
