@@ -286,7 +286,6 @@ from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
 from gaussian_splatting_web_tpu_torch.ops import anchor, rasterize
 from gaussian_splatting_web_tpu_torch.ops.composite import post_process
 from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
-from gaussian_splatting_web_tpu_torch.ops.cuda import bin as bin_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.cuda import project as project_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
@@ -406,6 +405,8 @@ KERNELS = {
 }
 SOURCES = ("raster_fwd", "raster_bwd", "anchor_fwd", "anchor_bwd", "project",
            "bin")
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -413,26 +414,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def launch_counts():
-    """Launches of kernels A, B, C, D, of A's and B's tile-list entries
-    (E-A, E-B), of the projection's P fwd and P bwd (P, P-bwd) and calls
-    of binning's kernels (bin) since the last reset."""
-    return {"A": raster_cuda.launches, "B": raster_cuda.launches_bwd,
-            "C": anchor_cuda.launches, "D": anchor_cuda.launches_bwd,
-            "E-A": raster_cuda.launches_tiles,
-            "E-B": raster_cuda.launches_tiles_bwd,
-            "P": project_cuda.launches, "P-bwd": project_cuda.launches_bwd,
-            "bin": bin_cuda.launches}
-
-
-def reset_counts():
-    raster_cuda.launches = raster_cuda.launches_bwd = 0
-    raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
-    anchor_cuda.launches = anchor_cuda.launches_bwd = 0
-    project_cuda.launches = project_cuda.launches_bwd = 0
-    bin_cuda.launches = 0
 
 
 def binned_by_kernels(cfg, kernels):
@@ -732,7 +713,8 @@ def tiles_vs_full(fields, bins, w, h, cfg, what, shards=TILE_SHARDS,
     first = None
     for ids in shard_strips(t, shards, chunk, dev):
         real = ids < t
-        out = raster_cuda.composite_tiles_list(fields, bins, ids, w, h, cfg)
+        out = raster_cuda.composite_forward(fields, bins, w, h, cfg,
+                                            tile_ids=ids)
         check(not bool(out.rgba[~real].any()) and bool(
             (out.last_idx[~real] == -1).all()),
             f"{what}: a sentinel slot is not empty")
@@ -742,9 +724,8 @@ def tiles_vs_full(fields, bins, w, h, cfg, what, shards=TILE_SHARDS,
              out.last_idx[..., None].float()], -1)[real]
         d_list = torch.where(real[:, None, None],
                              cot[ids.clamp(max=t - 1).long()], 0.0)
-        part = raster_cuda.composite_tiles_backward(
-            fields, bins, ids, w, h, cfg, out.final_log_t, out.last_idx,
-            d_list)
+        part = raster_cuda.composite_backward(fields, bins, w, h, cfg, out,
+                                              d_list, tile_ids=ids)
         rows += part
         if first is None:
             first = (ids, out, d_list, part)
@@ -794,17 +775,16 @@ def phase_tiles(dev, cfg, full, label="15 tiles"):
     d_rgb = torch.ones((H, W, 3), device=dev)
     d_alpha = torch.ones((H, W), device=dev)
     times = {
-        "E-A": kernel_ms(raster_cuda.prepare_fwd_tiles(fields, bins, ids, W,
-                                                       H, cfg)),
-        "E-B": kernel_ms(raster_cuda.prepare_bwd_tiles(
-            fields, bins, ids, W, H, cfg, out.final_log_t, out.last_idx,
-            d_list)),
+        "E-A": kernel_ms(raster_cuda.prepare_fwd(fields, bins, W, H, cfg,
+                                                 tile_ids=ids)),
+        "E-B": kernel_ms(raster_cuda.prepare_bwd(fields, bins, W, H, cfg, out,
+                                                 d_list, tile_ids=ids)),
         "A": kernel_ms(raster_cuda.prepare_fwd(fields, bins, W, H, cfg)),
         "B": kernel_ms(raster_cuda.prepare_bwd(fields, bins, W, H, cfg, comp,
                                                d_rgb, d_alpha)),
     }
-    run, (_, order) = raster_cuda.prepare_fwd_tiles(fields, bins, ids, W, H,
-                                                    cfg)
+    run, (_, order) = raster_cuda.prepare_fwd(fields, bins, W, H, cfg,
+                                              tile_ids=ids)
     run()
     capped = torch.clamp(torch.nn.functional.pad(bins.tile_count, (0, 1)),
                          max=cfg.max_per_tile)[ids.long()]
@@ -886,13 +866,13 @@ def sharded_step_check(step, state, ref, what):
     step ms, loss, parity); E-A 2, E-B 2, P 2 and P-bwd 2 (each view
     projected once) and no other kernel may launch."""
     cams, targets = ref[0], ref[1]
-    reset_counts()
+    build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = step(state, cams, targets)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    counts = launch_counts()
+    counts = build.launch_counts()
     loss = float(out[1])
     parity = step_parity(loss, [getattr(state.model, f).grad
                                 for f in ref[3]], ref)
@@ -910,11 +890,11 @@ def phase_sharded(dev, cloud, cfg, frame, mesh, ref):
     two 1080p views against the unsharded loss and gradients → E's
     launches in that step."""
     camera = bench_camera(W, H, dev)
-    reset_counts()
+    build.reset_launches()
     with torch.no_grad():
         rgb, alpha = render_sharded(cloud, camera, W, H, mesh, cfg)
     torch.cuda.synchronize()
-    render_counts = launch_counts()
+    render_counts = build.launch_counts()
     check(torch.equal(rgb, frame), "render_sharded on one rank "
           "differs from render")
     check(render_counts == {**{k: 0 for k in render_counts}, "E-A": 1,
@@ -959,10 +939,10 @@ def phase_gaussian_sharded(dev, cloud, cfg, frame, mesh, ref):
 
     renders = []
     for name in ("ring", "banded a2a", "banded ring"):
-        reset_counts()
+        build.reset_launches()
         rgb, over = run(name)
         torch.cuda.synchronize()
-        counts = launch_counts()
+        counts = build.launch_counts()
         check(torch.equal(rgb, frame), f"Gaussian-sharded {name} render on "
               "one rank differs from render")
         check(over == 0, f"Gaussian-sharded {name} render: overflow {over}")
@@ -1047,10 +1027,10 @@ def phase_config(dev, cloud, cfg, frame):
         check(bool(pick.any()), "no splat of radius 8-64 px to highlight")
         k = int(torch.where(pick, dist_c, float("inf")).argmin())
         cfg_d = cfg.replace(debug_selected=k)
-        reset_counts()
+        build.reset_launches()
         img_d, _ = render(cloud, camera, W, H, cfg_d)
         got = rasterize_tiles(splats, bins, W, H, cfg_d)
-        counts = launch_counts()
+        counts = build.launch_counts()
         check(counts == {**{c: 0 for c in counts}, "A": 2, "P": 1,
                          "bin": 1},
               f"debug_selected renders launched {counts}")
@@ -1065,9 +1045,9 @@ def phase_config(dev, cloud, cfg, frame):
 
         bf = cloud.with_storage_dtype("bfloat16")
         cfg_b = cfg.replace(dtype="bfloat16")
-        reset_counts()
+        build.reset_launches()
         img_b, aux_b = render(cloud, camera, W, H, cfg_b)
-        counts_b = launch_counts()
+        counts_b = build.launch_counts()
         check(counts_b == {**{c: 0 for c in counts_b}, "A": 1, "P": 1,
                            "bin": 1},
               f"bf16 render launched {counts_b}")
@@ -1558,10 +1538,10 @@ def phase_render(dev, cloud, cfg, frames=5, ref=None, label=None,
             stages["binning"].append((t2 - t1) * 1e3)
             stages["composite"].append((t3 - t2) * 1e3)
 
-        reset_counts()
+        build.reset_launches()
         img, aux, rgba, stages["frame"] = timed_frames(cloud, camera, cfg,
                                                        frames)
-        counts = launch_counts()
+        counts = build.launch_counts()
     check(counts == {k: frames * (k in (kernel, "P",
                                         *binned_by_kernels(cfg, kernel)))
                      for k in counts},
@@ -1605,7 +1585,7 @@ def phase_project(dev, cloud, cfg, label="22 project"):
     n = cloud.num_gaussians
     check(cloud.sh.shape[1] == 16, "the byte floors are SH degree 3's")
     camera = bench_camera(W, H, dev)
-    reset_counts()
+    build.reset_launches()
     with torch.no_grad():
         got = project_gaussians(cloud, camera, W, H, cfg)
         want = project_gaussians_plain(cloud, camera, W, H, cfg)
@@ -1619,7 +1599,7 @@ def phase_project(dev, cloud, cfg, label="22 project"):
     bwd = projection_grad_parity(*grads)
     check(bwd["ok"], f"P bwd vs float64 autograd: {bwd}")
     del host, grads
-    counts = launch_counts()
+    counts = build.launch_counts()
     check(counts == {**{k: 0 for k in counts}, "P": 2, "P-bwd": 1},
           f"the projection's checks launched {counts}")
 
@@ -1689,9 +1669,9 @@ def phase_binning(dev, label="23 binning"):
         with torch.no_grad():
             splats = project_gaussians(cloud, camera, w, h, cfg)
         torch.cuda.synchronize()
-        reset_counts()
+        build.reset_launches()
         got, syncs = count_syncs(lambda: bin_splats(splats, w, h, cfg))
-        counts = launch_counts()
+        counts = build.launch_counts()
         check(counts == {**{k: 0 for k in counts}, "bin": 1},
               f"binning at {n} launched {counts}")
         check(syncs == 1, f"binning at {n} made {syncs} host syncs")
@@ -1736,14 +1716,14 @@ def phase_step(dev, cloud, cfg, steps=7, label="5 step", kernels="AB"):
 
     step()                                   # warm-up
     times = []
-    reset_counts()
+    build.reset_launches()
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    counts = launch_counts()
+    counts = build.launch_counts()
     check(counts == {k: steps * (k in (*kernels, "P", "P-bwd",
                                        *binned_by_kernels(cfg, kernels)))
                      for k in counts},
@@ -1769,7 +1749,7 @@ def phase_serve(dev, cloud, cfg, n_events=5, label="6 serve", kernel="A"):
               {"kind": "zoom", "d": -300}, {"kind": "pan", "dx": 0.05,
                                             "dy": 0.02},
               {"kind": "tick"}][:n_events]
-    reset_counts()
+    build.reset_launches()
     sizes, times = [], []
     for ev in events[:3]:
         t0 = time.perf_counter()
@@ -1784,7 +1764,7 @@ def phase_serve(dev, cloud, cfg, n_events=5, label="6 serve", kernel="A"):
     for ev in events[3:]:                    # without the PNG encode
         frame, _ = app.handle_event(ev)
         check(frame.shape == (720, 1280, 4), f"{ev['kind']}: {frame.shape}")
-    counts = launch_counts()
+    counts = build.launch_counts()
     check(counts == {k: len(events) * (k in (
         kernel, "P", *binned_by_kernels(cfg, kernel))) for k in counts},
           f"serve launched {counts} in {len(events)} events")
@@ -1868,13 +1848,13 @@ def phase_train(dev, cfg, iterations=30, label="8 train", kernels="AB",
         torch.cuda.synchronize()
         log.append((it, loss, alive, time.perf_counter()))
 
-    reset_counts()
+    build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, dstate = train(model, views, W, H, render_config=cfg, loop=loop,
                           on_log=on_log, device=dev)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = build.launch_counts()
     check(counts == {k: iterations * (k in (
         *kernels, "P", "P-bwd", *binned_by_kernels(cfg, kernels)))
         for k in counts},

@@ -11,11 +11,11 @@
 alpha) plus the per-pixel residual. A CUDA tensor runs C forward and D
 backward, D reading the ordered lists C wrote; a CPU tensor runs the plain
 PyTorch versions (`ops/anchor.py`) through the same Function; any other
-device raises. Either way the backward folds the four row groups onto the
-splats with `fold_anchor_grads`. `launches` and `launches_bwd` count
-kernel launches and are changed nowhere else. `prepare_fwd` and
-`prepare_bwd` do a launch's checks and allocations and return a callable
-that only launches, so a kernel can be timed alone. Both kernels share A's
+device raises. Either way the backward (`raster.field_grads`, in the span
+`composite_bwd`) folds the four row groups onto the splats with
+`fold_anchor_grads`. `prepare_fwd` and `prepare_bwd` do a launch's checks
+and allocations and return a callable that only launches (through
+`build.KERNELS`), so a kernel can be timed alone. Both kernels share A's
 and B's walks (`csrc/tile_walk.cuh`) and run the tiles heavy first
 (`csrc/tile_order.cuh`; the plain twins are `tile_order` for C, by
 `schedule_weight`, and `raster.heavy_first_order` over `k_used` for D).
@@ -27,9 +27,9 @@ import math
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ...config import RenderConfig
+from ...utils import tracing
 from ..anchor import (
     KCL,
     AnchorBins,
@@ -41,11 +41,10 @@ from ..anchor import (
     fold_anchor_grads,
     k_cap,
 )
-from ..rasterize import FIELD_ROW, GRAD_ROW, Composite
-from .raster import _check, _device_of, _kernel_fn, heavy_first_order
-
-launches = 0       # kernel C
-launches_bwd = 0   # kernel D
+from ..rasterize import GRAD_ROW, Composite
+from . import runs_kernels
+from .build import KERNELS, check
+from .raster import check_fields, field_grads, heavy_first_order
 
 # kernel C's shared memory: the merge keys (8 bytes for each union lane),
 # whose space the composite's batch stage (FWD_BATCH pairs × 37 bytes) then
@@ -77,28 +76,16 @@ def tile_order(abins: AnchorBins, gx: int, gy: int,
     return heavy_first_order(*schedule_weight(abins, gx, gy, config))
 
 
-def _check_fields(fields, abins, config):
-    """Checks shared by both kernels: tile size, field layout, entries."""
-    if config.tile_size != 16:
-        raise ValueError("the CUDA compositor is built for tile_size=16, "
-                         f"got {config.tile_size}")
-    _check(fields, "fields", torch.float32, fields.device, 2)
-    if fields.shape[1] != FIELD_ROW or fields.data_ptr() % 16:
-        raise ValueError(f"fields must be a 16-byte aligned [N, {FIELD_ROW}]"
-                         f" array, got {tuple(fields.shape)}")
-    _check(abins.sorted_gidx, "sorted_gidx", torch.int32, fields.device, 1)
-
-
 def _check_inputs(fields, abins, width, height, config):
     """Kernel C's checks: the fields and the anchor bins."""
-    _check_fields(fields, abins, config)
+    check_fields(fields, abins.sorted_gidx, config)
     dev = fields.device
     gx, gy = config.grid_size(width, height)
     m = abins.sorted_gidx.shape[0]
     for t, name, dtype in ((abins.sorted_meta, "sorted_meta", torch.uint8),
                            (abins.sorted_depth, "sorted_depth", torch.int32),
                            (abins.starts, "starts", torch.int32)):
-        _check(t, name, dtype, dev, 1)
+        check(t, name, dtype, dev, 1)
         if name != "starts" and t.shape[0] != m:
             raise ValueError(f"{name} holds {t.shape[0]} entries, not {m}")
     if abins.starts.shape[0] != gx * gy + 1:
@@ -139,29 +126,16 @@ def prepare_fwd(fields, abins, width, height, config):
     order = torch.empty((gx * gy,), dtype=torch.int32, device=dev)
     ins = (fields, abins.sorted_gidx, abins.sorted_meta, abins.sorted_depth,
            abins.starts, order)
-    fn, err_str = _kernel_fn("anchor_fwd", 6, 7, 3, 7)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run():
-        global launches
-        err = fn(*(t.data_ptr() for t in ins),
-                 width, height, gx, gy, c_max(config), kc, smem,
-                 math.log(config.alpha_cutoff), config.alpha_max,
-                 math.log(config.transmittance_eps),
-                 *(t.data_ptr() for t in out + merge), dev.index, stream)
-        if err != 0:
-            raise RuntimeError(f"anchor_fwd launch failed: cuda error {err} "
-                               f"({err_str(err).decode()})")
-        launches += 1
+        KERNELS["anchor_fwd"](
+            dev, *(t.data_ptr() for t in ins),
+            width, height, gx, gy, c_max(config), kc, smem,
+            math.log(config.alpha_cutoff), config.alpha_max,
+            math.log(config.transmittance_eps),
+            *(t.data_ptr() for t in out + merge))
 
     return run, (out, merge, order)
-
-
-def _launch(fields, abins, width, height, config) -> Tuple[Composite, Merge]:
-    """Kernel C over every tile of the frame."""
-    run, (out, merge, _) = prepare_fwd(fields, abins, width, height, config)
-    run()
-    return out, merge
 
 
 def composite_anchor(fields: torch.Tensor, abins: AnchorBins, width: int,
@@ -170,9 +144,11 @@ def composite_anchor(fields: torch.Tensor, abins: AnchorBins, width: int,
     """The anchor forward → (Composite, Merge): kernel C for CUDA tensors,
     the plain version for CPU tensors. Not differentiable; see
     `composite_image_anchor`."""
-    if _device_of(fields) == "cpu":
+    if not runs_kernels(fields.device, "compositor"):
         return composite_anchor_plain(fields, abins, width, height, config)
-    return _launch(fields, abins, width, height, config)
+    run, (out, merge, _) = prepare_fwd(fields, abins, width, height, config)
+    run()
+    return out, merge
 
 
 def composite_anchor_backward(fields: torch.Tensor, abins: AnchorBins,
@@ -184,11 +160,13 @@ def composite_anchor_backward(fields: torch.Tensor, abins: AnchorBins,
     the forward's residual and ordered lists and the image cotangents:
     kernel D for CUDA tensors, the plain version (which redoes the merge)
     for CPU tensors."""
-    if _device_of(fields) == "cpu":
+    if not runs_kernels(fields.device, "compositor"):
         return composite_anchor_backward_plain(
             fields, abins, width, height, config, composite, d_rgb, d_alpha)
-    return _launch_bwd(fields, abins, width, height, config, composite,
-                       merge, d_rgb, d_alpha)
+    run, (dpairs, _) = prepare_bwd(fields, abins, width, height, config,
+                                   composite, merge, d_rgb, d_alpha)
+    run()
+    return dpairs
 
 
 def prepare_bwd(fields, abins, width, height, config, composite, merge,
@@ -196,7 +174,7 @@ def prepare_bwd(fields, abins, width, height, config, composite, merge,
     """Kernel D's checks and zeroed output → (run, (dpairs, order)): each
     run() launches D once over every tile of the frame into dpairs
     [4, M, 9], writing its tile schedule into `order` first."""
-    _check_fields(fields, abins, config)
+    check_fields(fields, abins.sorted_gidx, config)
     gx, gy = config.grid_size(width, height)
     dev = fields.device
     kc = k_cap(config)
@@ -210,7 +188,7 @@ def prepare_bwd(fields, abins, width, height, config, composite, merge,
             (composite.last_idx, "last_idx", torch.int32, (height, width)),
             (d_rgb, "d_rgb", torch.float32, (height, width, 3)),
             (d_alpha, "d_alpha", torch.float32, (height, width))):
-        _check(t, name, dtype, dev, len(shape))
+        check(t, name, dtype, dev, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
@@ -223,30 +201,15 @@ def prepare_bwd(fields, abins, width, height, config, composite, merge,
     ins = (fields, abins.sorted_gidx, merge.ordered, merge.k_used,
            merge.group, order, composite.final_log_t, composite.last_idx,
            d_rgb, d_alpha)
-    fn, err_str = _kernel_fn("anchor_bwd", 10, 6, 2, 1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run():
-        global launches_bwd
-        err = fn(*(t.data_ptr() for t in ins),
-                 width, height, gx, gy, kc, m,
-                 math.log(config.alpha_cutoff), config.alpha_max,
-                 dpairs.data_ptr(), dev.index, stream)
-        if err != 0:
-            raise RuntimeError(f"anchor_bwd launch failed: cuda error {err} "
-                               f"({err_str(err).decode()})")
-        launches_bwd += 1
+        KERNELS["anchor_bwd"](
+            dev, *(t.data_ptr() for t in ins),
+            width, height, gx, gy, kc, m,
+            math.log(config.alpha_cutoff), config.alpha_max,
+            dpairs.data_ptr())
 
     return run, (dpairs, order)
-
-
-def _launch_bwd(fields, abins, width, height, config, composite, merge,
-                d_rgb, d_alpha) -> torch.Tensor:
-    """Kernel D over every tile of the frame."""
-    run, (dpairs, _) = prepare_bwd(fields, abins, width, height, config,
-                                   composite, merge, d_rgb, d_alpha)
-    run()
-    return dpairs
 
 
 class AnchorCompositeFn(torch.autograd.Function):
@@ -263,19 +226,19 @@ class AnchorCompositeFn(torch.autograd.Function):
         return tuple(out)
 
     @staticmethod
+    @tracing.spanned("composite_bwd")
     def backward(ctx, d_rgb, d_alpha, _d_log_t, _d_last):
         fields, final_log_t, last_idx, *merge = ctx.saved_tensors
         abins, width, height, config = ctx.frame
-        zero = fields.new_zeros((height, width))
-        d_rgb = (zero[..., None].expand(height, width, 3) if d_rgb is None
-                 else d_rgb).contiguous()
-        d_alpha = (zero if d_alpha is None else d_alpha).contiguous()
         residual = Composite(None, None, final_log_t, last_idx)
-        dpairs = composite_anchor_backward(fields, abins, width, height,
-                                           config, residual, Merge(*merge),
-                                           d_rgb, d_alpha)
-        seg = fold_anchor_grads(dpairs, abins, fields.shape[0], config)
-        return F.pad(seg, (0, FIELD_ROW - GRAD_ROW)), None, None, None, None
+        d_fields = field_grads(
+            fields, (d_rgb, d_alpha), ((height, width, 3), (height, width)),
+            lambda *cot: composite_anchor_backward(
+                fields, abins, width, height, config, residual,
+                Merge(*merge), *cot),
+            lambda rows: fold_anchor_grads(rows, abins, fields.shape[0],
+                                           config))
+        return d_fields, None, None, None, None
 
 
 def composite_image_anchor(fields: torch.Tensor, abins: AnchorBins,
@@ -284,6 +247,5 @@ def composite_image_anchor(fields: torch.Tensor, abins: AnchorBins,
     """Composite every tile of a width × height frame from the per-splat
     fields [N, 12] and the anchor bins → Composite (rgb, alpha,
     final_log_t, last_idx), differentiable in `fields`."""
-    _device_of(fields)
     return Composite(*AnchorCompositeFn.apply(fields, abins, width, height,
                                               config))

@@ -12,8 +12,8 @@ pairs in slot order, the dead slots straight into `sorted_slot`'s tail),
 segments, `sorted_gidx`, `num_pairs` and `overflow` on the device, under
 the gather cap). Slot ids are sorted as int32 while the frame has fewer
 than 2³¹ slots, else as int64. Neither replaces a TPU kernel: the JAX
-package bins with XLA. `launches` counts calls (one per binning) and is
-changed nowhere else.
+package bins with XLA. Both passes launch through `build.KERNELS`; the
+count `launch_counts()["bin"]` is one per binning.
 """
 
 from __future__ import annotations
@@ -28,39 +28,26 @@ from ...utils import tracing
 from ..projection import ProjectedSplats
 from ..sort import TileBins, gather_cap, sort_key_bits
 from . import build
-from .raster import _kernel_fn
-
-launches = 0
 
 PER_BLOCK = 1024        # Gaussians a block of the count and emit passes
 INT32_SLOTS = 2 ** 31   # slot ids below this are sorted as int32
 
 
 @functools.cache
-def _fns():
-    """The ctypes entries of csrc/bin.cu and its error-string function."""
-    count, err_str = _kernel_fn("bin", 5, 11, 1, 5, entry="bin_count")
-    emit, _ = _kernel_fn("bin", 4, 12, 0, 11, entry="bin_emit_sort")
-    temp = build.load("bin").bin_sort_temp_bytes
-    temp.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-    temp.restype = ctypes.c_int
-    return count, emit, temp, err_str
-
-
-def _raise_on(err: int, entry: str, err_str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{entry} failed: cuda error {err} "
-                           f"({err_str(err).decode()})")
+def _sort_temp_bytes():
+    """csrc/bin.cu's host query of the sort's scratch bytes (no launch)."""
+    fn = build.load("bin").bin_sort_temp_bytes
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _field(t: torch.Tensor, name: str, dev, cols: int):
     """(tensor, row stride in elements) of a float32 [n] or [n, cols] field
     whose columns are contiguous (copied to make them so)."""
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
-    if t.dim() != (2 if cols else 1) or (cols and t.shape[1] != cols):
+    build.check(t, name, torch.float32, dev, 2 if cols else 1,
+                contiguous=False)
+    if cols and t.shape[1] != cols:
         raise ValueError(f"{name} has shape {tuple(t.shape)}")
     if cols and t.stride(1) != 1:
         t = t.contiguous()
@@ -71,7 +58,6 @@ def bin_splats_cuda(splats: ProjectedSplats, width: int, height: int,
                     config: RenderConfig) -> TileBins:
     """`bin_splats` of CUDA-resident splats with single-tier duplication,
     through csrc/bin.cu; see the module docstring."""
-    global launches
     gx, gy = config.grid_size(width, height)
     num_tiles = gx * gy
     n = splats.depth.shape[0]
@@ -101,15 +87,12 @@ def bin_splats_cuda(splats: ProjectedSplats, width: int, height: int,
     bounds = empty(num_tiles + 1)
     tile_start = empty(num_tiles)
     tile_count = empty(num_tiles)
-    count_fn, emit_fn, temp_fn, err_str = _fns()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     cull = config.tile_cull and config.radius_sigma <= 0
-    _raise_on(count_fn(
-        *(t.data_ptr() for t in (mean2d, conic, radius, opacity, valid)), n,
-        d, gx, gy, config.tile_size, cull, config.radius_sigma > 0, s_mean,
+    build.KERNELS["bin_count"](
+        dev, *(t.data_ptr() for t in (mean2d, conic, radius, opacity, valid)),
+        n, d, gx, gy, config.tile_size, cull, config.radius_sigma > 0, s_mean,
         s_conic, s_radius, s_opacity, config.alpha_cutoff,
-        *(t.data_ptr() for t in (geo, masks, counts, offsets, meta)),
-        dev.index, stream), "bin_count", err_str)
+        *(t.data_ptr() for t in (geo, masks, counts, offsets, meta)))
     m = int(meta[0].item())                  # binning's one host sync
     if m >= 2 ** 31:
         raise ValueError(f"{m} live pairs: the sort takes fewer than 2^31")
@@ -122,19 +105,19 @@ def bin_splats_cuda(splats: ProjectedSplats, width: int, height: int,
     keys = empty(2, m, dtype=i64 if key64 else i32)
     vals = empty(2, m, dtype=i64 if val64 else i32)
     nbytes = ctypes.c_longlong()
-    _raise_on(temp_fn(m, key64, val64, end_bit, ctypes.byref(nbytes)),
-              "bin_sort_temp_bytes", err_str)
+    err = _sort_temp_bytes()(m, key64, val64, end_bit, ctypes.byref(nbytes))
+    if err:
+        raise RuntimeError("bin_sort_temp_bytes failed: "
+                           + build.KERNELS["bin_emit_sort"].describe(err))
     temp = empty(max(nbytes.value, 1), dtype=torch.uint8)
     sorted_gidx = empty(kept)
-    _raise_on(emit_fn(
-        *(t.data_ptr() for t in (geo, masks, offsets, depth)), n, d, gx,
+    build.KERNELS["bin_emit_sort"](
+        dev, *(t.data_ptr() for t in (geo, masks, offsets, depth)), n, d, gx,
         num_tiles, shift, end_bit, key64, val64, m, kept, s_depth,
         temp.shape[0], keys[0].data_ptr(), keys[1].data_ptr(),
         vals[0].data_ptr(), vals[1].data_ptr(),
         *(t.data_ptr() for t in (temp, sorted_slot, sorted_gidx, bounds,
-                                 tile_start, tile_count, meta)),
-        dev.index, stream), "bin_emit_sort", err_str)
-    launches += 1
+                                 tile_start, tile_count, meta)))
 
     tracing.count("binning.live_pairs", kept)
     tracing.count("binning.slots", slots)

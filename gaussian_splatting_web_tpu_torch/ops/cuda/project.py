@@ -14,10 +14,9 @@ calls: a CUDA tensor runs P fwd and P bwd, a CPU tensor the plain twins
 through the same Function; any other device raises. It saves only the
 inputs and the packed camera (`ops/projection.py::pack_camera`, built with
 device ops, so no camera value is read on the host); the camera gets no
-gradient. `launches` and `launches_bwd` count kernel launches and are
-changed nowhere else. `prepare_fwd` and `prepare_bwd` do a launch's checks
-and allocations and return a callable that only launches, so a kernel can
-be timed alone.
+gradient. `prepare_fwd` and `prepare_bwd` do a launch's checks and
+allocations and return a callable that only launches (through
+`build.KERNELS`), so a kernel can be timed alone.
 """
 
 from __future__ import annotations
@@ -33,10 +32,8 @@ from ..projection import (
     project_backward_plain,
     project_gaussians_plain,
 )
-from .raster import _check, _kernel_fn
-
-launches = 0        # kernel P fwd
-launches_bwd = 0    # kernel P bwd
+from . import runs_kernels
+from .build import KERNELS, check
 
 SH_COEFFS = (1, 4, 9, 16)
 INPUTS = ("xyz", "log_scale", "quat", "opacity_logit", "sh")
@@ -50,7 +47,7 @@ def _inputs(xyz, log_scale, quat, opacity_logit, sh):
     ins = [t.contiguous() for t in (xyz, log_scale, quat, opacity_logit, sh)]
     for t, name, shape in zip(ins, INPUTS,
                               ((n, 3), (n, 3), (n, 4), (n,), None)):
-        _check(t, name, torch.float32, dev, len(shape) if shape else 3)
+        check(t, name, torch.float32, dev, len(shape) if shape else 3)
         if shape and tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
@@ -64,7 +61,7 @@ def _inputs(xyz, log_scale, quat, opacity_logit, sh):
 
 
 def _check_camera(cam, dev):
-    _check(cam, "cam", torch.float32, dev, 1)
+    check(cam, "cam", torch.float32, dev, 1)
     if cam.shape[0] != CAMERA_FLOATS:
         raise ValueError(f"cam has shape {tuple(cam.shape)}, expected "
                          f"({CAMERA_FLOATS},)")
@@ -87,20 +84,13 @@ def prepare_fwd(ins, cam, width, height, config: RenderConfig):
                           valid=empty(dtype=torch.bool))
     outs = (out.mean2d, out.conic, out.depth, out.radius, out.rgb,
             out.opacity, out.valid)
-    fn, err_str = _kernel_fn("project", 6, 4, 5, 7, entry="project_fwd")
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run():
-        global launches
-        err = fn(*(t.data_ptr() for t in (*ins, cam)), n, sh.shape[1], width,
-                 height, config.fov_clamp, config.lowpass,
-                 config.alpha_cutoff, config.radius_sigma,
-                 config.max_radius_px, *(t.data_ptr() for t in outs),
-                 dev.index, stream)
-        if err != 0:
-            raise RuntimeError(f"project_fwd launch failed: cuda error {err} "
-                               f"({err_str(err).decode()})")
-        launches += 1
+        KERNELS["project_fwd"](
+            dev, *(t.data_ptr() for t in (*ins, cam)), n, sh.shape[1], width,
+            height, config.fov_clamp, config.lowpass, config.alpha_cutoff,
+            config.radius_sigma, config.max_radius_px,
+            *(t.data_ptr() for t in outs))
 
     return run, out
 
@@ -121,34 +111,21 @@ def prepare_bwd(ins, cam, grads, width, height, config: RenderConfig):
     for g, name, shape in zip(grads, names, shapes):
         if g is not None:
             g = g.contiguous()
-            _check(g, name, torch.float32, dev, len(shape))
+            check(g, name, torch.float32, dev, len(shape))
             if tuple(g.shape) != shape:
                 raise ValueError(f"{name} has shape {tuple(g.shape)}, "
                                  f"expected {shape}")
         gs.append(g)
     d_ins = [torch.empty_like(t) for t in ins]
-    fn, err_str = _kernel_fn("project", 11, 4, 2, 5, entry="project_bwd")
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run():
-        global launches_bwd
-        err = fn(*(t.data_ptr() for t in (*ins, cam)),
-                 *(None if g is None else g.data_ptr() for g in gs),
-                 n, sh.shape[1], width, height, config.fov_clamp,
-                 config.lowpass, *(t.data_ptr() for t in d_ins), dev.index,
-                 stream)
-        if err != 0:
-            raise RuntimeError(f"project_bwd launch failed: cuda error {err} "
-                               f"({err_str(err).decode()})")
-        launches_bwd += 1
+        KERNELS["project_bwd"](
+            dev, *(t.data_ptr() for t in (*ins, cam)),
+            *(None if g is None else g.data_ptr() for g in gs),
+            n, sh.shape[1], width, height, config.fov_clamp, config.lowpass,
+            *(t.data_ptr() for t in d_ins))
 
     return run, d_ins
-
-
-def _device_of(xyz: torch.Tensor) -> str:
-    if xyz.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no projection for device {xyz.device}")
-    return xyz.device.type
 
 
 class ProjectFn(torch.autograd.Function):
@@ -161,7 +138,7 @@ class ProjectFn(torch.autograd.Function):
     def forward(ctx, xyz, log_scale, quat, opacity_logit, sh, camera, width,
                 height, config):
         cam = pack_camera(camera, xyz.dtype)
-        if _device_of(xyz) == "cpu":
+        if not runs_kernels(xyz.device, "projection"):
             ins = (xyz, log_scale, quat, opacity_logit, sh)
             out = project_gaussians_plain(GaussianCloud(*ins), camera, width,
                                           height, config)
@@ -182,7 +159,7 @@ class ProjectFn(torch.autograd.Function):
         *ins, cam = ctx.saved_tensors
         width, height, config = ctx.frame
         grads = (d_mean2d, d_conic, d_depth, d_rgb, d_opacity)
-        if _device_of(cam) == "cpu":
+        if not runs_kernels(cam.device, "projection"):
             d_ins = project_backward_plain(*ins, cam, width, height, config,
                                            *grads)
         else:

@@ -5,39 +5,36 @@
   * kernel B, `csrc/raster_bwd.cu`, its backward (replaces
     `gaussian_splatting_web_tpu/ops/pallas/raster_bwd.py::_bwd_kernel`).
 
-`composite_image` is the differentiable compositor: `CompositeFn` takes the
-packed per-splat fields [N, 12] to (rgb, alpha) plus the per-pixel
-residual. A CUDA tensor runs A forward and B backward; a CPU tensor runs
-the plain PyTorch twins (`ops/rasterize.py::composite_image_plain`,
-`composite_backward_plain`) through the same Function; any other device
-raises. Either way the backward folds B's pair rows onto the splats with
-`fold_pair_grads`. `composite_tiles_subset` (`CompositeTilesFn`) does the
-same over a list of tile ids with A's and B's tile-list entries (E, which
-replace `composite_tiles_pallas(tile_ids=)` and
-`backward_pair_grads(tile_ids=)`), writing tiles in list order, and their
-twins `ops/rasterize.py::composite_tiles` and
-`composite_tiles_backward_plain`. `launches`, `launches_bwd`,
-`launches_tiles` and `launches_tiles_bwd` count kernel launches and are
-changed nowhere else.
+`CompositeFn` is the differentiable compositor: it takes the packed
+per-splat fields [N, 12] to the image plus the per-pixel residual, over
+every tile of the frame (`composite_image`: rgb, alpha) or, given a list of
+tile ids, over the listed tiles in list order (`composite_tiles_subset`:
+rgba [L, 256, 4]) through A's and B's tile-list entries (E, which replace
+`composite_tiles_pallas(tile_ids=)` and `backward_pair_grads(tile_ids=)`).
+A CUDA tensor runs the kernels; a CPU tensor runs the plain PyTorch twins
+(`ops/rasterize.py::composite_image_plain`, `composite_backward_plain`,
+`composite_tiles`, `composite_tiles_backward_plain`) through the same
+Function; any other device raises. Either way the backward folds the pair
+rows onto the splats with `fold_pair_grads` (`field_grads`, which the
+anchor compositor shares).
 
 Both kernels run the tiles heavy first (each launch first writes the
 schedule, `csrc/tile_order.cuh`) and skip the 8x4 pixel blocks a pair
 cannot reach (`csrc/footprint.cuh`). Every entry takes the `mean16` flag
 (`config.pack_fields and config.pack_mean16`): each pair's tile-local mean
 is then rounded to 1/32 px as the twin's `_segments` rounds it, and the
-backward folds with `config.pack_grads`. `prepare_fwd` and `prepare_bwd` (and
-`prepare_fwd_tiles`, `prepare_bwd_tiles`) do a launch's checks and
-allocations and return a callable that only launches, so a kernel can be
-timed alone. `heavy_first_order` (with `tile_order` for A and B,
-`tile_list_order` for their list entries) and `footprint_blocks` are the
-plain twins of the schedule and of the cull, and `cull_stats` holds the
+backward folds with `config.pack_grads`. `prepare_fwd` and `prepare_bwd` do
+a launch's checks and allocations and return a callable that only launches
+(through `build.KERNELS`), so a kernel can be timed alone; `tile_ids`
+chooses the tile-list entry. `heavy_first_order` (with `tile_order` for A
+and B, `tile_list_order` for their list entries) and `footprint_blocks` are
+the plain twins of the schedule and of the cull, and `cull_stats` holds the
 cull against the twin's power; nothing on the render or training path
 calls them.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
@@ -58,12 +55,8 @@ from ..rasterize import (
     fold_pair_grads,
 )
 from ..sort import TileBins, mean16_on
-from . import build
-
-launches = 0             # kernel A
-launches_bwd = 0         # kernel B
-launches_tiles = 0       # kernel A's tile-list entry
-launches_tiles_bwd = 0   # kernel B's tile-list entry
+from . import runs_kernels
+from .build import KERNELS, check
 
 
 class TileOutputs(NamedTuple):
@@ -76,57 +69,35 @@ class TileOutputs(NamedTuple):
     last_idx: torch.Tensor
 
 
-def _kernel_fn(name: str, n_ptr_in: int, n_int: int, n_float: int,
-               n_ptr_out: int, entry: str | None = None):
-    """The extern "C" launcher `entry` (default `name`) of csrc/<name>.cu,
-    its argument types set, and the source's error-string function."""
-    lib = build.load(name)
-    fn = getattr(lib, entry or name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr_in + [ctypes.c_int] * n_int
-                   + [ctypes.c_float] * n_float + [ctypes.c_void_p] * n_ptr_out
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err_str = getattr(lib, f"{name}_error_string")
-    err_str.argtypes = [ctypes.c_int]
-    err_str.restype = ctypes.c_char_p
-    return fn, err_str
-
-
-def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {ndim} dims")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_inputs(fields, bins, width, height, config, tile_ids=None):
-    """Checks shared by both kernels: tile size, field layout, bins and,
-    for the tile-list entries, `tile_ids` (ids in [0, gx·gy], gx·gy the
-    empty sentinel, no real id twice), in one host sync."""
+def check_fields(fields, sorted_gidx, config):
+    """The checks every compositor kernel (A-E) shares: the tile size, the
+    fields' layout and the sorted splat ids."""
     if config.tile_size != 16:
         raise ValueError("the CUDA compositor is built for tile_size=16, "
                          f"got {config.tile_size}")
-    dev = fields.device
-    gx, gy = config.grid_size(width, height)
-    _check(fields, "fields", torch.float32, dev, 2)
+    check(fields, "fields", torch.float32, fields.device, 2)
     if fields.shape[1] != FIELD_ROW or fields.data_ptr() % 16:
         raise ValueError(f"fields must be a 16-byte aligned [N, {FIELD_ROW}]"
                          f" array, got {tuple(fields.shape)}")
-    _check(bins.sorted_gidx, "sorted_gidx", torch.int32, dev, 1)
-    _check(bins.tile_start, "tile_start", torch.int32, dev, 1)
-    _check(bins.tile_count, "tile_count", torch.int32, dev, 1)
+    check(sorted_gidx, "sorted_gidx", torch.int32, fields.device, 1)
+
+
+def _check_inputs(fields, bins, width, height, config, tile_ids=None):
+    """Checks shared by both kernels: `check_fields`, the bins and, for
+    the tile-list entries, `tile_ids` (ids in [0, gx·gy], gx·gy the empty
+    sentinel, no real id twice), in one host sync."""
+    check_fields(fields, bins.sorted_gidx, config)
+    dev = fields.device
+    gx, gy = config.grid_size(width, height)
+    check(bins.tile_start, "tile_start", torch.int32, dev, 1)
+    check(bins.tile_count, "tile_count", torch.int32, dev, 1)
     if bins.tile_start.shape[0] != gx * gy or \
             bins.tile_count.shape[0] != gx * gy:
         raise ValueError(f"bins hold {bins.tile_start.shape[0]} tiles, "
                          f"the frame has {gx * gy}")
     m = bins.sorted_gidx.shape[0]
     if tile_ids is not None:
-        _check(tile_ids, "tile_ids", torch.int32, dev, 1)
+        check(tile_ids, "tile_ids", torch.int32, dev, 1)
     checks = {}
     if m:
         checks["end"] = (bins.tile_start.to(torch.int64) + torch.clamp(
@@ -188,151 +159,183 @@ def tile_list_order(bins: TileBins, tile_ids: torch.Tensor,
     return heavy_first_order(counts, config.max_per_tile)
 
 
-def _device_of(fields: torch.Tensor) -> str:
-    if fields.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no compositor for device {fields.device}")
-    return fields.device.type
+def _pixels(width, height, config, tile_ids):
+    """The leading shape of an image-shaped array: (H, W) for the frame,
+    (L, 256) for the L entries of `tile_ids`."""
+    if tile_ids is None:
+        return (height, width)
+    return (tile_ids.shape[0], config.tile_size ** 2)
 
 
-def _forward(fields, bins, width, height, config) -> Composite:
-    if _device_of(fields) == "cpu":
-        return composite_image_plain(fields, bins, width, height, config)
-    return _launch(fields, bins, width, height, config)
-
-
-def prepare_fwd(fields, bins, width, height, config):
-    """Kernel A's checks and outputs → (run, (Composite, order)): each
-    run() launches A once over every tile of the frame into the outputs,
-    writing its tile schedule into `order` first."""
-    gx, gy = _check_inputs(fields, bins, width, height, config)
+def prepare_fwd(fields, bins, width, height, config, tile_ids=None):
+    """Kernel A's checks and outputs → (run, (out, order)): each run()
+    launches A once into the outputs, writing its schedule into `order`
+    first. Over every tile of the frame, out is a Composite and `order` a
+    permutation of the tiles; given `tile_ids`, A's tile-list entry (E-A)
+    composites the L listed tiles into TileOutputs and `order` permutes the
+    list positions."""
+    gx, gy = _check_inputs(fields, bins, width, height, config, tile_ids)
     dev = fields.device
-    out = Composite(
-        rgb=torch.empty((height, width, 3), dtype=torch.float32, device=dev),
-        alpha=torch.empty((height, width), dtype=torch.float32, device=dev),
-        final_log_t=torch.empty((height, width), dtype=torch.float32,
-                                device=dev),
-        last_idx=torch.empty((height, width), dtype=torch.int32, device=dev))
-    order = torch.empty((gx * gy,), dtype=torch.int32, device=dev)
-    ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count, order)
-    fn, err_str = _kernel_fn("raster_fwd", 5, 6, 3, 4)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lead = _pixels(width, height, config, tile_ids)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty((*lead, *shape), dtype=dtype, device=dev)
+
+    if tile_ids is None:
+        kernel, ids, n_ids = KERNELS["raster_fwd"], (), ()
+        out = Composite(rgb=empty(3), alpha=empty(), final_log_t=empty(),
+                        last_idx=empty(dtype=torch.int32))
+    else:
+        kernel, ids, n_ids = KERNELS["raster_fwd_tiles"], (tile_ids,), lead[:1]
+        out = TileOutputs(rgba=empty(4), final_log_t=empty(),
+                          last_idx=empty(dtype=torch.int32))
+    order = torch.empty((lead[0] if ids else gx * gy,), dtype=torch.int32,
+                        device=dev)
+    ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count, *ids,
+           order)
     mean16 = int(mean16_on(config))
 
     def run():
-        global launches
-        err = fn(*(t.data_ptr() for t in ins),
-                 width, height, gx, gy, config.max_per_tile, mean16,
-                 math.log(config.alpha_cutoff), config.alpha_max,
-                 math.log(config.transmittance_eps),
-                 *(t.data_ptr() for t in out), dev.index, stream)
-        if err != 0:
-            raise RuntimeError(f"raster_fwd launch failed: cuda error {err} "
-                               f"({err_str(err).decode()})")
-        launches += 1
+        kernel(dev, *(t.data_ptr() for t in ins), *n_ids,
+               width, height, gx, gy, config.max_per_tile, mean16,
+               math.log(config.alpha_cutoff), config.alpha_max,
+               math.log(config.transmittance_eps),
+               *(t.data_ptr() for t in out))
 
     return run, (out, order)
 
 
-def _launch(fields, bins, width, height, config) -> Composite:
-    """Kernel A over every tile of the frame."""
-    run, (out, _) = prepare_fwd(fields, bins, width, height, config)
-    run()
-    return out
-
-
-def composite_backward(fields: torch.Tensor, bins: TileBins, width: int,
-                       height: int, config: RenderConfig,
-                       composite: Composite, d_rgb: torch.Tensor,
-                       d_alpha: torch.Tensor) -> torch.Tensor:
-    """Per-pair gradient rows [M, 9] in sorted pair order from the forward's
-    residual (`composite.final_log_t`, `composite.last_idx`) and the image
-    cotangents d_rgb [H, W, 3], d_alpha [H, W]: kernel B for CUDA tensors,
-    the plain twin for CPU tensors."""
-    if _device_of(fields) == "cpu":
-        return composite_backward_plain(fields, bins, width, height, config,
-                                        composite, d_rgb, d_alpha)
-    return _launch_bwd(fields, bins, width, height, config, composite,
-                       d_rgb, d_alpha)
-
-
-def prepare_bwd(fields, bins, width, height, config, composite, d_rgb,
-                d_alpha):
+def prepare_bwd(fields, bins, width, height, config, residual, *cotangents,
+                tile_ids=None):
     """Kernel B's checks and zeroed output → (run, (dpairs, order)): each
-    run() launches B once over every tile of the frame into dpairs [M, 9],
-    writing its tile schedule into `order` first."""
-    gx, gy = _check_inputs(fields, bins, width, height, config)
+    run() launches B once into dpairs [M, 9], writing its schedule into
+    `order` first. It reads the forward's residual (`residual.final_log_t`,
+    `residual.last_idx`) and the image cotangents: d_rgb [H, W, 3] and
+    d_alpha [H, W] over every tile of the frame, or, given `tile_ids`, B's
+    tile-list entry (E-B) over the L listed tiles with d_rgba [L, 256, 4],
+    every array in list-position layout."""
+    gx, gy = _check_inputs(fields, bins, width, height, config, tile_ids)
     dev = fields.device
-    _check(composite.final_log_t, "final_log_t", torch.float32, dev, 2)
-    _check(composite.last_idx, "last_idx", torch.int32, dev, 2)
-    _check(d_rgb, "d_rgb", torch.float32, dev, 3)
-    _check(d_alpha, "d_alpha", torch.float32, dev, 2)
-    for t, name in ((composite.final_log_t, "final_log_t"),
-                    (composite.last_idx, "last_idx"), (d_rgb, "d_rgb"),
-                    (d_alpha, "d_alpha")):
-        if tuple(t.shape[:2]) != (height, width):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, the frame "
-                             f"is {height}x{width}")
-    if d_rgb.shape[2] != 3:
-        raise ValueError(f"d_rgb has shape {tuple(d_rgb.shape)}")
+    lead = _pixels(width, height, config, tile_ids)
+    if tile_ids is None:
+        kernel, ids, n_ids = KERNELS["raster_bwd"], (), ()
+        wants = (("d_rgb", (*lead, 3)), ("d_alpha", lead))
+    else:
+        kernel, ids, n_ids = KERNELS["raster_bwd_tiles"], (tile_ids,), lead[:1]
+        wants = (("d_rgba", (*lead, 4)),)
+    if len(cotangents) != len(wants):
+        raise TypeError(f"expected the cotangents {[n for n, _ in wants]}, "
+                        f"got {len(cotangents)} arrays")
+    for t, name, dtype, shape in (
+            (residual.final_log_t, "final_log_t", torch.float32, lead),
+            (residual.last_idx, "last_idx", torch.int32, lead),
+            *((t, name, torch.float32, shape)
+              for t, (name, shape) in zip(cotangents, wants))):
+        check(t, name, dtype, dev, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
     dpairs = torch.zeros((bins.sorted_gidx.shape[0], GRAD_ROW),
                          dtype=torch.float32, device=dev)
-    order = torch.empty((gx * gy,), dtype=torch.int32, device=dev)
-    ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count, order,
-           composite.final_log_t, composite.last_idx, d_rgb, d_alpha)
-    fn, err_str = _kernel_fn("raster_bwd", 9, 6, 2, 1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    order = torch.empty((lead[0] if ids else gx * gy,), dtype=torch.int32,
+                        device=dev)
+    ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count, *ids,
+           order, residual.final_log_t, residual.last_idx, *cotangents)
     mean16 = int(mean16_on(config))
 
     def run():
-        global launches_bwd
-        err = fn(*(t.data_ptr() for t in ins),
-                 width, height, gx, gy, config.max_per_tile, mean16,
-                 math.log(config.alpha_cutoff), config.alpha_max,
-                 dpairs.data_ptr(), dev.index, stream)
-        if err != 0:
-            raise RuntimeError(f"raster_bwd launch failed: cuda error {err} "
-                               f"({err_str(err).decode()})")
-        launches_bwd += 1
+        kernel(dev, *(t.data_ptr() for t in ins), *n_ids,
+               width, height, gx, gy, config.max_per_tile, mean16,
+               math.log(config.alpha_cutoff), config.alpha_max,
+               dpairs.data_ptr())
 
     return run, (dpairs, order)
 
 
-def _launch_bwd(fields, bins, width, height, config, composite, d_rgb,
-                d_alpha) -> torch.Tensor:
-    """Kernel B over every tile of the frame."""
+def composite_forward(fields, bins, width, height, config, tile_ids=None):
+    """The compositor's forward, not differentiable: → Composite over every
+    tile of the frame, or TileOutputs (rgba [L, 256, 4], final_log_t,
+    last_idx [L, 256]) over the L entries of `tile_ids`; the kernels for
+    CUDA tensors, the plain twins for CPU tensors. The tile-list kernel
+    writes pixels outside the frame as taking no part (rgba 0, log-T 0,
+    last index -1); its twin composites them as if the frame went on. Both
+    give the empty sentinel id gx·gy a slot of rgba 0, log-T 0 and -1."""
+    if not runs_kernels(fields.device, "compositor"):
+        if tile_ids is None:
+            return composite_image_plain(fields, bins, width, height, config)
+        gx, _ = config.grid_size(width, height)
+        return TileOutputs(*composite_tiles(fields, bins, tile_ids, gx,
+                                            config))
+    run, (out, _) = prepare_fwd(fields, bins, width, height, config,
+                                tile_ids)
+    run()
+    return out
+
+
+def composite_backward(fields, bins, width, height, config, residual,
+                       *cotangents, tile_ids=None) -> torch.Tensor:
+    """Per-pair gradient rows [M, 9] in sorted pair order from the
+    forward's residual and the image cotangents (as `prepare_bwd` takes
+    them; rows of unlisted tiles' pairs are 0): kernel B for CUDA tensors,
+    the plain twin for CPU tensors. Pixels outside the frame take no part
+    in the tile-list backward."""
+    if not runs_kernels(fields.device, "compositor"):
+        if tile_ids is None:
+            return composite_backward_plain(fields, bins, width, height,
+                                            config, residual, *cotangents)
+        return composite_tiles_backward_plain(
+            fields, bins, tile_ids, width, height, config, residual.last_idx,
+            *cotangents)
     run, (dpairs, _) = prepare_bwd(fields, bins, width, height, config,
-                                   composite, d_rgb, d_alpha)
+                                   residual, *cotangents, tile_ids=tile_ids)
     run()
     return dpairs
 
 
+def field_grads(fields, grads, shapes, pair_grads, fold) -> torch.Tensor:
+    """The compositors' shared backward: the image cotangents `grads` (None
+    → zeros of `shapes`) made contiguous, `pair_grads(*cotangents)` → pair
+    rows, `fold(rows)` → splat rows [N, 9], widened to [N, 12] with zero
+    pads."""
+    cots = [fields.new_zeros(shape) if g is None else g.contiguous()
+            for g, shape in zip(grads, shapes)]
+    return F.pad(fold(pair_grads(*cots)), (0, FIELD_ROW - GRAD_ROW))
+
+
 class CompositeFn(torch.autograd.Function):
-    """fields [N, 12] → (rgb [H, W, 3], alpha [H, W], final_log_t,
-    last_idx); the residual outputs carry no gradient. The backward
-    returns the folded pair gradients widened to [N, 12] with zero pads."""
+    """(fields [N, 12], bins, width, height, config, tile_ids) → the
+    outputs of `composite_forward`: (rgb [H, W, 3], alpha [H, W],
+    final_log_t, last_idx) with tile_ids None, else (rgba [L, 256, 4],
+    final_log_t, last_idx [L, 256]); the residual outputs and `tile_ids`
+    carry no gradient. The backward returns the folded pair gradients
+    widened to [N, 12] with zero pads."""
 
     @staticmethod
-    def forward(ctx, fields, bins, width, height, config):
-        out = _forward(fields, bins, width, height, config)
+    def forward(ctx, fields, bins, width, height, config, tile_ids):
+        out = composite_forward(fields, bins, width, height, config,
+                                tile_ids)
         ctx.mark_non_differentiable(out.final_log_t, out.last_idx)
-        ctx.save_for_backward(fields, out.final_log_t, out.last_idx)
+        ctx.save_for_backward(fields, out.final_log_t, out.last_idx,
+                              tile_ids)
         ctx.frame = (bins, width, height, config)
         return tuple(out)
 
     @staticmethod
     @tracing.spanned("composite_bwd")
-    def backward(ctx, d_rgb, d_alpha, _d_log_t, _d_last):
-        fields, final_log_t, last_idx = ctx.saved_tensors
+    def backward(ctx, *grads):
+        fields, final_log_t, last_idx, tile_ids = ctx.saved_tensors
         bins, width, height, config = ctx.frame
-        zero = fields.new_zeros((height, width))
-        d_rgb = (zero[..., None].expand(height, width, 3) if d_rgb is None
-                 else d_rgb).contiguous()
-        d_alpha = (zero if d_alpha is None else d_alpha).contiguous()
-        residual = Composite(None, None, final_log_t, last_idx)
-        dpairs = composite_backward(fields, bins, width, height, config,
-                                    residual, d_rgb, d_alpha)
-        seg = fold_pair_grads(dpairs, bins, fields.shape[0], config)
-        return F.pad(seg, (0, FIELD_ROW - GRAD_ROW)), None, None, None, None
+        lead = tuple(final_log_t.shape)
+        residual = TileOutputs(None, final_log_t, last_idx)
+        d_fields = field_grads(
+            fields, grads[:-2],
+            ((*lead, 3), lead) if tile_ids is None else ((*lead, 4),),
+            lambda *cot: composite_backward(fields, bins, width, height,
+                                            config, residual, *cot,
+                                            tile_ids=tile_ids),
+            lambda rows: fold_pair_grads(rows, bins, fields.shape[0],
+                                         config))
+        return d_fields, None, None, None, None, None
 
 
 def composite_image(fields: torch.Tensor, bins: TileBins, width: int,
@@ -340,157 +343,8 @@ def composite_image(fields: torch.Tensor, bins: TileBins, width: int,
     """Composite every tile of a width × height frame from the per-splat
     fields [N, 12] and the bins → Composite (rgb, alpha, final_log_t,
     last_idx), differentiable in `fields`."""
-    _device_of(fields)
-    return Composite(*CompositeFn.apply(fields, bins, width, height, config))
-
-
-# --- the tile-list entries (composite_tiles_subset_pallas) -----------------
-
-
-def prepare_fwd_tiles(fields, bins, tile_ids, width, height, config):
-    """Kernel A's tile-list entry: checks and outputs → (run, (TileOutputs,
-    order)): each run() launches A once over the L entries of `tile_ids`
-    into the tile-major outputs, writing its schedule of list positions into
-    `order` first."""
-    gx, gy = _check_inputs(fields, bins, width, height, config, tile_ids)
-    dev = fields.device
-    n_ids = tile_ids.shape[0]
-    p = config.tile_size ** 2
-    out = TileOutputs(
-        rgba=torch.empty((n_ids, p, 4), dtype=torch.float32, device=dev),
-        final_log_t=torch.empty((n_ids, p), dtype=torch.float32, device=dev),
-        last_idx=torch.empty((n_ids, p), dtype=torch.int32, device=dev))
-    order = torch.empty((n_ids,), dtype=torch.int32, device=dev)
-    ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count,
-           tile_ids, order)
-    fn, err_str = _kernel_fn("raster_fwd", 6, 7, 3, 3,
-                              entry="raster_fwd_tiles")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    mean16 = int(mean16_on(config))
-
-    def run():
-        global launches_tiles
-        err = fn(*(t.data_ptr() for t in ins),
-                 n_ids, width, height, gx, gy, config.max_per_tile, mean16,
-                 math.log(config.alpha_cutoff), config.alpha_max,
-                 math.log(config.transmittance_eps),
-                 *(t.data_ptr() for t in out), dev.index, stream)
-        if err != 0:
-            raise RuntimeError(f"raster_fwd_tiles launch failed: cuda error "
-                               f"{err} ({err_str(err).decode()})")
-        launches_tiles += 1
-
-    return run, (out, order)
-
-
-def prepare_bwd_tiles(fields, bins, tile_ids, width, height, config,
-                      final_log_t, last_idx, d_rgba):
-    """Kernel B's tile-list entry: checks and zeroed output → (run, (dpairs,
-    order)): each run() launches B once over the L entries of `tile_ids`,
-    reading the residual final_log_t, last_idx [L, 256] and the cotangent
-    d_rgba [L, 256, 4] in list-position layout, into dpairs [M, 9]."""
-    gx, gy = _check_inputs(fields, bins, width, height, config, tile_ids)
-    dev = fields.device
-    n_ids = tile_ids.shape[0]
-    p = config.tile_size ** 2
-    _check(final_log_t, "final_log_t", torch.float32, dev, 2)
-    _check(last_idx, "last_idx", torch.int32, dev, 2)
-    _check(d_rgba, "d_rgba", torch.float32, dev, 3)
-    for t, name, shape in ((final_log_t, "final_log_t", (n_ids, p)),
-                           (last_idx, "last_idx", (n_ids, p)),
-                           (d_rgba, "d_rgba", (n_ids, p, 4))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{shape}")
-    dpairs = torch.zeros((bins.sorted_gidx.shape[0], GRAD_ROW),
-                         dtype=torch.float32, device=dev)
-    order = torch.empty((n_ids,), dtype=torch.int32, device=dev)
-    ins = (fields, bins.sorted_gidx, bins.tile_start, bins.tile_count,
-           tile_ids, order, final_log_t, last_idx, d_rgba)
-    fn, err_str = _kernel_fn("raster_bwd", 9, 7, 2, 1,
-                              entry="raster_bwd_tiles")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    mean16 = int(mean16_on(config))
-
-    def run():
-        global launches_tiles_bwd
-        err = fn(*(t.data_ptr() for t in ins),
-                 n_ids, width, height, gx, gy, config.max_per_tile, mean16,
-                 math.log(config.alpha_cutoff), config.alpha_max,
-                 dpairs.data_ptr(), dev.index, stream)
-        if err != 0:
-            raise RuntimeError(f"raster_bwd_tiles launch failed: cuda error "
-                               f"{err} ({err_str(err).decode()})")
-        launches_tiles_bwd += 1
-
-    return run, (dpairs, order)
-
-
-def composite_tiles_list(fields, bins, tile_ids, width, height,
-                         config) -> TileOutputs:
-    """The tiles at the L entries of `tile_ids` → TileOutputs (rgba [L,
-    256, 4], final_log_t, last_idx [L, 256]), not differentiable: kernel
-    A's tile-list entry for CUDA tensors, the plain twin
-    (`ops/rasterize.py::composite_tiles`) for CPU tensors. The kernel
-    writes pixels outside the frame as taking no part (rgba 0, log-T 0,
-    last index -1); the twin composites them as if the frame went on. Both
-    give the empty sentinel id gx·gy a slot of rgba 0, log-T 0 and -1."""
-    if _device_of(fields) == "cpu":
-        gx, _ = config.grid_size(width, height)
-        return TileOutputs(*composite_tiles(fields, bins, tile_ids, gx,
-                                            config))
-    run, (out, _) = prepare_fwd_tiles(fields, bins, tile_ids, width, height,
-                                      config)
-    run()
-    return out
-
-
-def composite_tiles_backward(fields, bins, tile_ids, width, height, config,
-                             final_log_t, last_idx,
-                             d_rgba) -> torch.Tensor:
-    """Per-pair gradient rows [M, 9] of the listed tiles' pairs (rows of
-    unlisted tiles' pairs are 0) from the residual and the cotangent d_rgba
-    [L, 256, 4] in list-position layout: kernel B's tile-list entry for
-    CUDA tensors, the plain twin for CPU tensors. Pixels outside the frame
-    take no part."""
-    if _device_of(fields) == "cpu":
-        return composite_tiles_backward_plain(fields, bins, tile_ids, width,
-                                              height, config, last_idx,
-                                              d_rgba)
-    run, (dpairs, _) = prepare_bwd_tiles(fields, bins, tile_ids, width,
-                                         height, config, final_log_t,
-                                         last_idx, d_rgba)
-    run()
-    return dpairs
-
-
-class CompositeTilesFn(torch.autograd.Function):
-    """fields [N, 12] → (rgba [L, 256, 4], final_log_t, last_idx [L, 256])
-    over the L entries of `tile_ids`; the residual outputs and `tile_ids`
-    carry no gradient. The backward returns the folded pair gradients
-    widened to [N, 12] with zero pads."""
-
-    @staticmethod
-    def forward(ctx, fields, bins, tile_ids, width, height, config):
-        out = composite_tiles_list(fields, bins, tile_ids, width, height,
-                                   config)
-        ctx.mark_non_differentiable(out.final_log_t, out.last_idx)
-        ctx.save_for_backward(fields, tile_ids, out.final_log_t,
-                              out.last_idx)
-        ctx.frame = (bins, width, height, config)
-        return tuple(out)
-
-    @staticmethod
-    @tracing.spanned("composite_bwd")
-    def backward(ctx, d_rgba, _d_log_t, _d_last):
-        fields, tile_ids, final_log_t, last_idx = ctx.saved_tensors
-        bins, width, height, config = ctx.frame
-        dpairs = composite_tiles_backward(
-            fields, bins, tile_ids, width, height, config, final_log_t,
-            last_idx, d_rgba.contiguous())
-        seg = fold_pair_grads(dpairs, bins, fields.shape[0], config)
-        return (F.pad(seg, (0, FIELD_ROW - GRAD_ROW)), None, None, None,
-                None, None)
+    return Composite(*CompositeFn.apply(fields, bins, width, height, config,
+                                        None))
 
 
 def composite_tiles_subset(fields: torch.Tensor, bins: TileBins,
@@ -500,9 +354,8 @@ def composite_tiles_subset(fields: torch.Tensor, bins: TileBins,
     [0, gx·gy], gx·gy the empty sentinel, no real id twice) → rgba
     [L, 256, 4] premultiplied, differentiable in `fields`: the port of the
     JAX package's `composite_tiles_subset_pallas`."""
-    _device_of(fields)
-    return CompositeTilesFn.apply(fields, bins, tile_ids, width, height,
-                                  config)[0]
+    return CompositeFn.apply(fields, bins, width, height, config,
+                             tile_ids)[0]
 
 
 # --- the footprint cull's plain mirror (tests and chip_smoke only) --------

@@ -44,6 +44,7 @@ import torch
 
 from ..config import RenderConfig
 from ..utils import tracing
+from .cuda import runs_kernels
 from .projection import ProjectedSplats
 
 TAU_SLACK = 1e-3      # slack on the cull's level-set threshold (JAX sort.py)
@@ -289,8 +290,8 @@ def gather_cap(n: int, slots: int, config: RenderConfig) -> int:
 def takes_kernels(device: torch.device, config: RenderConfig) -> bool:
     """Whether `bin_splats` runs csrc/bin.cu (`ops/cuda/bin.py`): CUDA
     tensors with single-tier duplication. CPU tensors and the tiered modes
-    take `bin_splats_plain`."""
-    return device.type == "cuda" and not tier_widths(0, config)[1]
+    take `bin_splats_plain`; any other device raises."""
+    return runs_kernels(device, "binning") and not tier_widths(0, config)[1]
 
 
 @tracing.spanned("binning")

@@ -14,9 +14,11 @@ for A and B and `RenderConfig(binning="anchor")` for C and D.
 outside the window, through the wrappers' `prepare_fwd`/`prepare_bwd`
 (every commit from the one that redesigned A and B has them): CUDA events
 span 5 back-to-back launches, median of 7 samples. "wrapper" is the whole
-wrapper call, median of 7. Where the checkout has them (`prepare_fwd_tiles`
-/ `prepare_bwd_tiles`), A's and B's tile-list entries E-A and E-B are
-timed the same way over one shard's list: shard 0 of 4 of the tile deal
+wrapper call, median of 7. Where the checkout has them, A's and B's
+tile-list entries E-A and E-B are timed the same way (`prepare_fwd` /
+`prepare_bwd` with `tile_ids=`, or `prepare_fwd_tiles` /
+`prepare_bwd_tiles` on checkouts from before the one launcher of
+`ops/cuda/build.py`) over one shard's list: shard 0 of 4 of the tile deal
 `_padded_tile_ids(8160, 4, 32)`, padding turned into the empty sentinel.
 Prints the card line and one JSON line {"root": ..., "A": {"kernel_ms",
 "wrapper_ms", "sha256"}, "B": ..., "C": ..., "D": ..., "E-A": ...,
@@ -42,7 +44,8 @@ one call, median of 7, at `mipnerf360`'s 2.96M Gaussians at 1237x822,
 which runs the CUDA kernels of `csrc/bin.cu` where the checkout has them,
 and, where it has them, "plain_ms" is `bin_splats_plain` (the PyTorch
 path) on the same tensors, whose bins must equal the kernels' bit for bit;
-`launches` is `ops/cuda/bin.py`'s count over one call.
+`launches` is binning's launch count over one call (`build.launch_counts`,
+or `ops/cuda/bin.py`'s own count on older checkouts).
 Each time is set against `bench_lib.binning_bytes` at 3.35 TB/s.
 """
 
@@ -149,23 +152,16 @@ def main():
             "D": ac.prepare_bwd(fields, abins, W, H, cfg_a, comp_a, merge,
                                 d_rgb, d_alpha)[0],
         }
-        if hasattr(rc, "prepare_fwd_tiles"):
+        if hasattr(rc, "composite_forward") or hasattr(rc,
+                                                       "prepare_fwd_tiles"):
             from gaussian_splatting_web_tpu_torch.parallel.render_sharded \
                 import shard_tile_ids
             ids = shard_tile_ids(cfg.num_tiles(W, H), 4, 32, 0).to(dev)
-            out = rc.composite_tiles_list(fields, bins, ids, W, H, cfg)
             d_rgba = torch.randn((ids.shape[0], 256, 4), generator=gen,
                                  device=dev)
-            wrappers["E-A"] = lambda: rc.composite_tiles_list(
-                fields, bins, ids, W, H, cfg)
-            wrappers["E-B"] = lambda: rc.composite_tiles_backward(
-                fields, bins, ids, W, H, cfg, out.final_log_t, out.last_idx,
-                d_rgba)
-            runs["E-A"] = rc.prepare_fwd_tiles(fields, bins, ids, W, H,
-                                               cfg)[0]
-            runs["E-B"] = rc.prepare_bwd_tiles(
-                fields, bins, ids, W, H, cfg, out.final_log_t, out.last_idx,
-                d_rgba)[0]
+            wrappers.update(tile_list_wrappers(rc, fields, bins, ids, cfg,
+                                               d_rgba))
+            runs.update(tile_list_runs(rc, fields, bins, ids, cfg, d_rgba))
         result = {"root": root}
         for name, run in runs.items():
             result[name] = {"kernel_ms": median_ms(run, repeat=5),
@@ -174,6 +170,53 @@ def main():
         result.update(projection_times(root, make_scene, default_camera))
         result.update(binning_times(make_scene, default_camera))
     print(json.dumps(result))
+
+
+def tile_list_wrappers(rc, fields, bins, ids, cfg, d_rgba) -> dict:
+    """E-A's and E-B's wrapper calls over `ids`, in this checkout's API
+    or the one from before the one launcher."""
+    if hasattr(rc, "composite_forward"):
+        out = rc.composite_forward(fields, bins, W, H, cfg, tile_ids=ids)
+        return {"E-A": lambda: rc.composite_forward(fields, bins, W, H, cfg,
+                                                    tile_ids=ids),
+                "E-B": lambda: rc.composite_backward(
+                    fields, bins, W, H, cfg, out, d_rgba, tile_ids=ids)}
+    out = rc.composite_tiles_list(fields, bins, ids, W, H, cfg)
+    return {"E-A": lambda: rc.composite_tiles_list(fields, bins, ids, W, H,
+                                                   cfg),
+            "E-B": lambda: rc.composite_tiles_backward(
+                fields, bins, ids, W, H, cfg, out.final_log_t, out.last_idx,
+                d_rgba)}
+
+
+def tile_list_runs(rc, fields, bins, ids, cfg, d_rgba) -> dict:
+    """E-A's and E-B's launches alone over `ids` (the `prepare_*` run
+    callables), in either API."""
+    if hasattr(rc, "composite_forward"):
+        run_f, (out, _) = rc.prepare_fwd(fields, bins, W, H, cfg,
+                                         tile_ids=ids)
+        run_f()
+        return {"E-A": run_f,
+                "E-B": rc.prepare_bwd(fields, bins, W, H, cfg, out, d_rgba,
+                                      tile_ids=ids)[0]}
+    run_f, (out, _) = rc.prepare_fwd_tiles(fields, bins, ids, W, H, cfg)
+    run_f()
+    return {"E-A": run_f,
+            "E-B": rc.prepare_bwd_tiles(fields, bins, ids, W, H, cfg,
+                                        out.final_log_t, out.last_idx,
+                                        d_rgba)[0]}
+
+
+def bin_launches(bc) -> int:
+    """Binning's launches so far: the launcher's count, or `bc`'s own
+    (`ops/cuda/bin.py` before the one launcher); 0 without the kernels."""
+    if bc is None:
+        return 0
+    from gaussian_splatting_web_tpu_torch.ops.cuda import build
+
+    if hasattr(build, "launch_counts"):
+        return build.launch_counts()["bin"]
+    return bc.launches
 
 
 def binning_times(make_scene, default_camera) -> dict:
@@ -202,9 +245,9 @@ def binning_times(make_scene, default_camera) -> dict:
         camera = default_camera(w, h, eye=(0, 0, -8),
                                 center=(0, 0, 0)).to(dev)
         splats = project_gaussians(cloud, camera, w, h, cfg)
-        before = bc.launches if bc else 0
+        before = bin_launches(bc)
         got = sort.bin_splats(splats, w, h, cfg)
-        row = {"launches": (bc.launches - before) if bc else None}
+        row = {"launches": (bin_launches(bc) - before) if bc else None}
         if plain is not None:
             want = plain(splats, w, h, cfg)
             row["equal"] = all(torch.equal(getattr(got, f), getattr(want, f))

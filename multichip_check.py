@@ -52,7 +52,6 @@ from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
     GaussianModel,
 )
 from gaussian_splatting_web_tpu_torch.ops.cuda import build
-from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
 from gaussian_splatting_web_tpu_torch.ops.rasterize import render
 from gaussian_splatting_web_tpu_torch.parallel import (
     init_sharded_train_state,
@@ -83,11 +82,9 @@ def check(cond, msg):
 
 
 def launches():
-    return (raster_cuda.launches_tiles, raster_cuda.launches_tiles_bwd)
-
-
-def reset():
-    raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
+    """E-A's and E-B's launches since the last `build.reset_launches`."""
+    counts = build.launch_counts()
+    return (counts["E-A"], counts["E-B"])
 
 
 def sync(dev):
@@ -163,7 +160,7 @@ def run(args):
             shard, camera, w, h, mesh, cfg, stream="ring"),
     }
     for name, fn in renders.items():
-        reset()
+        build.reset_launches()
         with torch.no_grad():
             rgb, _, over = fn()
             sync(dev)
@@ -194,7 +191,7 @@ def run(args):
                 step = make_gaussian_sharded_train_step(
                     w, h, m, cfg, banded=banded, stream=stream)
             del model
-            reset()
+            build.reset_launches()
             result = step(state, cams, targets)
             sync(dev)
             n_e = launches()

@@ -170,10 +170,10 @@ def test_anchor_image_matches_xla_oracle(kind):
     abins = anchor.bin_splats_anchor(splats, W, H, CFG)
     rng = anchor.tile_ranges(abins, *CFG.grid_size(W, H), CFG)
     assert int((rng.s1 - rng.base).max()) <= anchor.c_max(CFG) * anchor.KCL
-    anchor_cuda.launches = 0
+    build.reset_launches()
     comp = anchor_cuda.composite_image_anchor(pack_splat_fields(splats),
                                               abins, W, H, CFG)
-    assert anchor_cuda.launches == 0
+    assert build.launch_counts()["C"] == 0
     np.testing.assert_allclose(_image(comp), _oracle(s, jcfg), atol=2e-4)
     if kind == "opaque":
         assert (comp.alpha > 0.999).any()
@@ -414,11 +414,12 @@ def test_train_step_with_anchor_binning():
     model = GaussianModel.from_numpy(numpy_cloud_model(
         make_random_cloud(60, seed=4, sh_degree=1)))
     before = model.xyz.detach().clone()
-    anchor_cuda.launches = anchor_cuda.launches_bwd = 0
+    build.reset_launches()
     state, _ = train(model, [View(camera=camera, image=target, name="v")],
                      w, h, render_config=CFG.replace(max_per_tile=256),
                      loop=TrainLoopConfig(iterations=2, densify_from=100),
                      device="cpu")
-    assert anchor_cuda.launches == anchor_cuda.launches_bwd == 0
+    counts = build.launch_counts()
+    assert counts["C"] == counts["D"] == 0
     assert torch.isfinite(state.model.xyz).all()
     assert not torch.equal(state.model.xyz, before)

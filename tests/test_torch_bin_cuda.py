@@ -26,6 +26,7 @@ from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.core.camera import default_camera
 from gaussian_splatting_web_tpu_torch.ops import sort
 from gaussian_splatting_web_tpu_torch.ops.cuda import bin as bin_cuda
+from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.projection import (
     ProjectedSplats,
     project_gaussians,
@@ -60,9 +61,9 @@ def projected(dev, n, w, h, cfg, seed=0, log_scale=(-6.0, -4.0), eye_z=-8.0):
 def check_same(splats, w, h, cfg):
     """Kernel path == PyTorch path on the same tensors, field for field;
     returns the bins."""
-    before = bin_cuda.launches
+    before = build.launch_counts()["bin"]
     got = sort.bin_splats(splats, w, h, cfg)
-    assert bin_cuda.launches == before + 1
+    assert build.launch_counts()["bin"] == before + 1
     want = sort.bin_splats_plain(splats, w, h, cfg)
     for f in FIELDS:
         a, b = getattr(got, f), getattr(want, f)
@@ -164,9 +165,9 @@ def test_one_host_sync(device):
 def test_tiered_mode_takes_plain_path(device):
     cfg = RenderConfig(depth_bits=19, tier_split=2)
     splats = projected(device, 20_000, 320, 200, cfg, log_scale=(-4.0, -2.5))
-    before = bin_cuda.launches
+    before = build.launch_counts()["bin"]
     got = sort.bin_splats(splats, 320, 200, cfg)
-    assert bin_cuda.launches == before
+    assert build.launch_counts()["bin"] == before
     want = sort.bin_splats_plain(splats, 320, 200, cfg)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -27,6 +27,7 @@ from gaussian_splatting_web_tpu_torch.bench_lib import (
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.core import camera as cam
 from gaussian_splatting_web_tpu_torch.core.types import GaussianCloud
+from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
 from gaussian_splatting_web_tpu_torch.ops.projection import project_gaussians
 from gaussian_splatting_web_tpu_torch.ops.rasterize import (
@@ -125,11 +126,11 @@ def test_kernel_adversarial_scene(device):
 def test_render_launches_kernel_once_per_frame(device):
     cloud = _scene(2).to(device)
     camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
-    raster_cuda.launches = 0
+    build.reset_launches()
     for _ in range(3):
         img, _ = render(cloud, camera, 64, 48, CFG)
     torch.cuda.synchronize()
-    assert raster_cuda.launches == 3
+    assert build.launch_counts()["A"] == 3
     assert img.device.type == "cuda" and torch.isfinite(img).all()
 
 
@@ -235,7 +236,8 @@ def _tiles_vs_full(cloud, w, h, dev, cfg=CFG, n_shards=3, chunk=2):
     for s in range(n_shards):
         ids = shard_tile_ids(t, n_shards, chunk, s).to(dev)
         real = ids < t
-        out = raster_cuda.composite_tiles_list(fields, bins, ids, w, h, cfg)
+        out = raster_cuda.composite_forward(fields, bins, w, h, cfg,
+                                            tile_ids=ids)
         assert not out.rgba[~real].any() and not out.final_log_t[~real].any()
         assert (out.last_idx[~real] == -1).all()
         stitched[ids[real].long()] = torch.cat(
@@ -247,9 +249,8 @@ def _tiles_vs_full(cloud, w, h, dev, cfg=CFG, n_shards=3, chunk=2):
         assert bad.float().mean().item() <= MAX_BAD_FRAC, int(bad.sum())
         d_list = torch.where(real[:, None, None],
                              cot[ids.clamp(max=t - 1).long()], 0.0)
-        part = raster_cuda.composite_tiles_backward(
-            fields, bins, ids, w, h, cfg, out.final_log_t, out.last_idx,
-            d_list)
+        part = raster_cuda.composite_backward(fields, bins, w, h, cfg, out,
+                                              d_list, tile_ids=ids)
         rows += part
         want = composite_tiles_backward_plain(fields, bins, ids, w, h, cfg,
                                               out.last_idx, d_list)
@@ -283,8 +284,9 @@ def test_tile_list_kernels_match_full_frame_and_plain(device, scene):
 
 def test_tile_list_autograd_launches_and_schedule(device):
     """composite_tiles_subset on the card: E-A forward and E-B backward once
-    each; over every tile its gradient equals CompositeFn's bit for bit;
-    both entries write a heavy-first schedule of the list positions."""
+    each, and no A or B; over every tile, CompositeFn's gradient through
+    the tile list equals its gradient over the frame bit for bit; both
+    entries write a heavy-first schedule of the list positions."""
     w, h = 72, 40
     cfg = CFG.replace(max_per_tile=32)
     camera = cam.default_camera(w, h, eye=(0, 0, -6), center=(0, 0, 0))
@@ -301,21 +303,22 @@ def test_tile_list_autograd_launches_and_schedule(device):
         (torch.cat([full.rgb, full.alpha[..., None]], -1) * weight).sum(),
         fields)
     ids = torch.cat([torch.arange(t), torch.full((3,), t)]).int().to(device)
-    raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
+    build.reset_launches()
     tiles = raster_cuda.composite_tiles_subset(fields, bins, ids, w, h, cfg)
     img = assemble_image(tiles[:t], w, h, gx, gy)
     (g_list,) = torch.autograd.grad((img * weight).sum(), fields)
     torch.cuda.synchronize()
-    assert raster_cuda.launches_tiles == 1
-    assert raster_cuda.launches_tiles_bwd == 1
+    counts = build.launch_counts()
+    assert counts["E-A"] == 1 and counts["E-B"] == 1
+    assert counts["A"] == counts["B"] == 0
     assert torch.equal(g_list, g_full)
 
-    run, (out, order) = raster_cuda.prepare_fwd_tiles(fields.detach(), bins,
-                                                      ids, w, h, cfg)
+    run, (out, order) = raster_cuda.prepare_fwd(fields.detach(), bins, w, h,
+                                                cfg, tile_ids=ids)
     run()
-    run_b, (_, order_b) = raster_cuda.prepare_bwd_tiles(
-        fields.detach(), bins, ids, w, h, cfg, out.final_log_t, out.last_idx,
-        torch.ones((ids.shape[0], 256, 4), device=device))
+    run_b, (_, order_b) = raster_cuda.prepare_bwd(
+        fields.detach(), bins, w, h, cfg, out,
+        torch.ones((ids.shape[0], 256, 4), device=device), tile_ids=ids)
     run_b()
     torch.cuda.synchronize()
     capped = torch.clamp(torch.nn.functional.pad(bins.tile_count, (0, 1)),
@@ -325,9 +328,8 @@ def test_tile_list_autograd_launches_and_schedule(device):
         assert sorted(got.tolist()) == list(range(ids.shape[0]))
         assert torch.equal(capped[got.long()], want)
     with pytest.raises(ValueError, match="more than once"):
-        raster_cuda.composite_tiles_list(fields.detach(), bins,
-                                         torch.cat([ids, ids[:1]]), w, h,
-                                         cfg)
+        raster_cuda.composite_forward(fields.detach(), bins, w, h, cfg,
+                                      tile_ids=torch.cat([ids, ids[:1]]))
 
 
 def test_grads_flow_through_kernels(device):
@@ -340,14 +342,14 @@ def test_grads_flow_through_kernels(device):
         cloud = GaussianCloud(**{
             f: getattr(cpu, f).clone().to(dev).requires_grad_(True)
             for f in FIELDS})
-        raster_cuda.launches = raster_cuda.launches_bwd = 0
+        build.reset_launches()
         img, _ = render(cloud, camera, 64, 48, CFG)
         (img * img).sum().backward()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert raster_cuda.launches == raster_cuda.launches_bwd == 1
-        else:
-            assert raster_cuda.launches == raster_cuda.launches_bwd == 0
+        counts = build.launch_counts()
+        want = 1 if dev.type == "cuda" else 0
+        assert counts["A"] == counts["B"] == want
         grads.append([getattr(cloud, f).grad for f in FIELDS])
     for g in grads[1]:
         assert torch.isfinite(g).all()
@@ -370,10 +372,11 @@ def test_train_step_launches_each_kernel_once(device):
     model = GaussianModel.from_cloud(_scene(0)).to(device)
     state = TrainState(model, make_optimizer(model))
     step = make_train_step(64, 48, CFG)
-    raster_cuda.launches = raster_cuda.launches_bwd = 0
+    build.reset_launches()
     losses = [float(step(state, camera, target)[1]) for _ in range(3)]
     torch.cuda.synchronize()
-    assert raster_cuda.launches == raster_cuda.launches_bwd == 3
+    counts = build.launch_counts()
+    assert counts["A"] == counts["B"] == 3
     assert all(np.isfinite(losses)) and state.step == 3
 
 
@@ -464,8 +467,6 @@ def test_anchor_grads_flow_through_kernels(device):
     """render with binning='anchor' on the card: C forward and D backward
     once each, none of A or B, and the parameter gradients agree with the
     CPU path's."""
-    from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
-
     cpu = _scene(0)
     camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
     grads = []
@@ -473,15 +474,15 @@ def test_anchor_grads_flow_through_kernels(device):
         cloud = GaussianCloud(**{
             f: getattr(cpu, f).clone().to(dev).requires_grad_(True)
             for f in FIELDS})
-        raster_cuda.launches = raster_cuda.launches_bwd = 0
-        anchor_cuda.launches = anchor_cuda.launches_bwd = 0
+        build.reset_launches()
         img, _ = render(cloud, camera, 64, 48, ACFG)
         (img * img).sum().backward()
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        counts = build.launch_counts()
         want = 1 if dev.type == "cuda" else 0
-        assert anchor_cuda.launches == anchor_cuda.launches_bwd == want
-        assert raster_cuda.launches == raster_cuda.launches_bwd == 0
+        assert counts["C"] == counts["D"] == want
+        assert counts["A"] == counts["B"] == 0
         grads.append([getattr(cloud, f).grad for f in FIELDS])
     for g in grads[1]:
         assert torch.isfinite(g).all()
@@ -582,11 +583,11 @@ def test_gaussian_sharded_step_is_deterministic(device, banded, stream):
     grads = []
     for _ in range(2):
         model = GaussianModel.from_cloud(cloud)
-        raster_cuda.launches_tiles = raster_cuda.launches_tiles_bwd = 0
+        build.reset_launches()
         step(TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3)),
              cams, targets)
-        assert (raster_cuda.launches_tiles,
-                raster_cuda.launches_tiles_bwd) == (2, 2)
+        counts = build.launch_counts()
+        assert (counts["E-A"], counts["E-B"]) == (2, 2)
         grads.append([getattr(model, f).grad for f in PARAMS])
     for f, a, b in zip(PARAMS, *grads):
         assert torch.equal(a, b), f
@@ -665,7 +666,6 @@ def test_packed_render_and_step_launch_counts(device):
     from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
         GaussianModel,
     )
-    from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
     from gaussian_splatting_web_tpu_torch.train.trainer import (
         TrainState,
         make_optimizer,
@@ -675,19 +675,19 @@ def test_packed_render_and_step_launch_counts(device):
     camera = cam.default_camera(64, 48, eye=(0, 0, -6), center=(0, 0, 0))
     with torch.no_grad():
         target, _ = render(_scene(1).to(device), camera, 64, 48, CFG)
-    for cfg, mod in ((CFG_P, raster_cuda),
-                     (ACFG.replace(pack_fields=True, pack_grads=True),
-                      anchor_cuda)):
+    for cfg, fwd, bwd in ((CFG_P, "A", "B"),
+                          (ACFG.replace(pack_fields=True, pack_grads=True),
+                           "C", "D")):
         model = GaussianModel.from_cloud(_scene(0)).to(device)
         state = TrainState(model, make_optimizer(model))
         step = make_train_step(64, 48, cfg)
-        for m in (raster_cuda, anchor_cuda):
-            m.launches = m.launches_bwd = 0
+        build.reset_launches()
         with torch.no_grad():
             img, _ = render(model.to_cloud(), camera, 64, 48, cfg)
         losses = [float(step(state, camera, target)[1]) for _ in range(2)]
         torch.cuda.synchronize()
-        assert (mod.launches, mod.launches_bwd) == (3, 2)
+        counts = build.launch_counts()
+        assert (counts[fwd], counts[bwd]) == (3, 2)
         assert all(np.isfinite(losses)) and torch.isfinite(img).all()
 
 

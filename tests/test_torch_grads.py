@@ -50,6 +50,7 @@ from gaussian_splatting_web_tpu_torch.core import camera as port_camera
 from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
     GaussianModel,
 )
+from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.cuda import raster as raster_cuda
 from gaussian_splatting_web_tpu_torch.ops.rasterize import (
     composite_backward_plain,
@@ -152,12 +153,13 @@ def test_backward_twin_matches_autograd_of_plain_forward(scene):
     _assert_parity(got, want[:, :9])
 
     # the differentiable compositor on a CPU tensor: the twins, no kernel
-    raster_cuda.launches = raster_cuda.launches_bwd = 0
+    build.reset_launches()
     out = raster_cuda.composite_image(fields, bins, w, h, CFG)
     loss = ((out.rgb * torch.from_numpy(d_rgb)).sum()
             + (out.alpha * torch.from_numpy(d_alpha)).sum())
     (via_fn,) = torch.autograd.grad(loss, fields)
-    assert raster_cuda.launches == raster_cuda.launches_bwd == 0
+    counts = build.launch_counts()
+    assert counts["A"] == counts["B"] == 0
     torch.testing.assert_close(via_fn[:, :9], got, rtol=0, atol=0)
     assert via_fn[:, 9:].abs().max() == 0
 

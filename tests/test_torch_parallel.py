@@ -182,7 +182,8 @@ def test_tile_list_twins_match_full_frame():
     ragged 72x40 frame against the full-frame twins: each strip's tiles are
     the full frame's on the pixels inside it, the sentinel slots are empty,
     the two strips' backward rows add up to the full frame's, and the
-    gradient through CompositeTilesFn equals the full frame's."""
+    gradient through CompositeFn over the tile lists equals its gradient
+    over the frame."""
     cloud, camera, w, h = _binned()
     cfg = RenderConfig(max_dup=16, max_per_tile=64)
     gx, gy = cfg.grid_size(w, h)
@@ -203,8 +204,8 @@ def test_tile_list_twins_match_full_frame():
     cot = tile_major(torch.cat([d_rgb, d_alpha[..., None]], -1), gx, gy, 16)
     rows = 0
     for ids in strips:
-        out = raster_cuda.composite_tiles_list(fields.detach(), bins, ids, w,
-                                               h, cfg)
+        out = raster_cuda.composite_forward(fields.detach(), bins, w, h,
+                                            cfg, tile_ids=ids)
         real = ids < t
         got = out.rgba[real]
         want = ref_tiles[ids[real].long()]
@@ -222,7 +223,7 @@ def test_tile_list_twins_match_full_frame():
     np.testing.assert_allclose(rows.numpy(), full_rows.numpy(), rtol=1e-5,
                                atol=1e-7)
 
-    # autograd: the stitched strips through CompositeTilesFn vs CompositeFn
+    # autograd: CompositeFn over the stitched strips vs over the frame
     weight = torch.rand((h, w, 4), generator=gen)
     frame = raster_cuda.composite_image(fields, bins, w, h, cfg)
     full_img = torch.cat([frame.rgb, frame.alpha[..., None]], -1)

@@ -27,7 +27,7 @@ from gaussian_splatting_web_tpu_torch.bench_lib import (
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.core import camera as cam
 from gaussian_splatting_web_tpu_torch.core.types import GaussianCloud
-from gaussian_splatting_web_tpu_torch.ops.cuda import project as project_cuda
+from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.projection import (
     project_gaussians,
     project_gaussians_plain,
@@ -147,14 +147,14 @@ def test_counters_count_one_launch_each(device):
     cloud = on(edge_cloud(3), device)
     leaves = {f: getattr(cloud, f).requires_grad_(True) for f in INPUTS}
     camera = camera_for(W, H, EYE).to(device)
-    before = (project_cuda.launches, project_cuda.launches_bwd)
+    build.reset_launches()
     out = project_gaussians(GaussianCloud(**leaves), camera, W, H, CFG)
-    assert (project_cuda.launches - before[0],
-            project_cuda.launches_bwd - before[1]) == (1, 0)
+    counts = build.launch_counts()
+    assert (counts["P"], counts["P-bwd"]) == (1, 0)
     (out.rgb.sum() + out.mean2d.sum() + out.conic.sum()
      + out.opacity.sum()).backward()
-    assert (project_cuda.launches - before[0],
-            project_cuda.launches_bwd - before[1]) == (1, 1)
+    counts = build.launch_counts()
+    assert (counts["P"], counts["P-bwd"]) == (1, 1)
 
 
 def test_no_host_sync(device):
@@ -204,11 +204,11 @@ def test_float64_cloud_is_cast_to_float32(device):
     storage dtype does: the bits of the float32 cloud, one launch."""
     cloud = edge_cloud(3)
     camera = camera_for(W, H, EYE).to(device)
-    before = project_cuda.launches
+    build.reset_launches()
     with torch.no_grad():
         a = project_gaussians(on(cloud, device, torch.float64), camera, W,
                               H, CFG)
         b = project_gaussians(on(cloud, device), camera, W, H, CFG)
-    assert project_cuda.launches - before == 2
+    assert build.launch_counts()["P"] == 2
     for f in dataclasses.fields(a):
         assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name

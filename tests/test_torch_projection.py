@@ -21,7 +21,7 @@ from gaussian_splatting_web_tpu_torch.core.types import (
     CameraParams,
     GaussianCloud,
 )
-from gaussian_splatting_web_tpu_torch.ops.cuda import project as project_cuda
+from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.projection import (
     pack_camera,
     project_backward_plain,
@@ -137,7 +137,7 @@ def test_project_fn_cpu_takes_the_twins():
     """On CPU tensors `project_gaussians` (through ProjectFn) gives the
     forward twin's outputs and the backward twin's gradients; the kernels'
     launch counters do not move."""
-    before = (project_cuda.launches, project_cuda.launches_bwd)
+    before = build.launch_counts()
     cloud, camera = branch_cloud(3, torch.float32), camera_of(torch.float32)
     leaves = {f: getattr(cloud, f).clone().requires_grad_(True)
               for f in INPUTS}
@@ -158,7 +158,8 @@ def test_project_fn_cpu_takes_the_twins():
     for name, g, w in zip(INPUTS, grads, plain):
         assert torch.equal(g, w), name
     assert not got.radius.requires_grad and not got.valid.requires_grad
-    assert (project_cuda.launches, project_cuda.launches_bwd) == before
+    after = build.launch_counts()
+    assert (after["P"], after["P-bwd"]) == (before["P"], before["P-bwd"])
 
 
 def test_camera_requiring_grad_raises():

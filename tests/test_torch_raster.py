@@ -188,11 +188,11 @@ def test_plain_compositor_ragged_frame():
 def test_cpu_tensor_takes_plain_path_without_build():
     cloud = _random_scene(4, n=30)
     _, _, _, splats, bins = _bins(cloud, 32, 32, CFG)
-    raster_cuda.launches = 0
+    build.reset_launches()
     out = raster_cuda.composite_image(pack_splat_fields(splats), bins, 32, 32,
                                       CFG)
     assert out.alpha.device.type == "cpu" and out.alpha.max() > 0
-    assert raster_cuda.launches == 0
+    assert build.launch_counts()["A"] == 0
     assert "raster_fwd" not in build._libs        # nothing was compiled
     with pytest.raises(ValueError, match="no compositor"):
         raster_cuda.composite_image(

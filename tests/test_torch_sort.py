@@ -27,6 +27,7 @@ from gaussian_splatting_web_tpu.ops.sort import (
 from gaussian_splatting_web_tpu_torch.config import RenderConfig
 from gaussian_splatting_web_tpu_torch.ops.projection import ProjectedSplats
 from gaussian_splatting_web_tpu_torch.ops.cuda import bin as bin_cuda
+from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.sort import (
     bin_splats,
     bin_splats_plain,
@@ -135,10 +136,10 @@ def test_cuda_splats_take_the_kernels(monkeypatch):
 def test_cpu_splats_take_the_plain_path(cfg):
     cloud, _ = _scene("plain")
     _, splats = _projected(cloud, cfg)
-    before = bin_cuda.launches
+    before = build.launch_counts()["bin"]
     got = bin_splats(splats, W, H, cfg)
     want = bin_splats_plain(splats, W, H, cfg)
-    assert bin_cuda.launches == before
+    assert build.launch_counts()["bin"] == before
     for f in ("sorted_gidx", "sorted_slot", "tile_start", "tile_count",
               "num_pairs", "overflow"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
