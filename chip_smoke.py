@@ -176,11 +176,25 @@ Binning's kernels (`csrc/bin.cu`, `ops/cuda/bin.py`):
              whole (CUDA events around one call, median of 7) against
              `bench_lib.binning_bytes` at 3.35 TB/s
 
+The optimizer's kernel (`csrc/adam.cu`, `ops/cuda/adam.py`):
+
+ 24 adam     one launch of csrc/adam.cu over the six leaves (59 floats a
+             row) at `mipnerf360`'s 2.96M rows, `tandt`'s 1.66M and a
+             `rubble` rank's 10.1M: one step against `adam_plain` from the
+             same state on the card (p, m and v within 4 ulp of the
+             magnitudes they add up), `Adam.step()` one launch; the kernel
+             alone (CUDA events), the whole `step()`, `adam_plain` and
+             `torch.optim.Adam(foreach=True)`'s step on the same tensors
+             (the yardstick `library_ms`, which the port never calls),
+             against the 28-B floor (read p, g, m and v, write p, m and v)
+             at 3.35 TB/s
+
 Every phase that renders or trains counts P and P bwd with the other
 kernels: one P launch a frame, one P and one P bwd launch a step; and
 binning's calls ("bin"): one a frame or step that bins through
 `csrc/bin.cu` (the dup binning with single-tier duplication), none in the
-anchor and tiered modes.
+anchor and tiered modes. Every phase that trains counts the optimizer's
+launches ("adam"): one a training step (phases 8, 14, 16, 18, 20).
 
 Image rule (tests/conftest.py::assert_images_close): at most 2e-4 of the
 pixels may differ by more than 2e-4; on the pixels that agree, the
@@ -251,11 +265,14 @@ import torch.distributed as dist
 
 from gaussian_splatting_web_tpu_torch import bench_lib
 from gaussian_splatting_web_tpu_torch.bench_lib import (
+    ADAM_BYTES,
+    ADAM_ULPS,
     GRAD_EXTRA,
     HBM_BYTES_S,
     P_BWD_BYTES,
     P_FWD_BYTES,
     PROJ_INPUTS,
+    adam_ulp_gap,
     binning_bytes,
     bound,
     grad_parity,
@@ -285,6 +302,7 @@ from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
 )
 from gaussian_splatting_web_tpu_torch.ops import anchor, rasterize
 from gaussian_splatting_web_tpu_torch.ops.composite import post_process
+from gaussian_splatting_web_tpu_torch.ops.cuda import adam as adam_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import anchor as anchor_cuda
 from gaussian_splatting_web_tpu_torch.ops.cuda import build
 from gaussian_splatting_web_tpu_torch.ops.cuda import project as project_cuda
@@ -402,9 +420,19 @@ KERNELS = {
     # no TPU kernel: the JAX package's binning is XLA
     "bin": ("gaussian_splatting_web_tpu_torch/csrc/bin.cu",
             "gaussian_splatting_web_tpu/ops/sort.py bin_splats (XLA)"),
+    # no TPU kernel: the JAX package's Adam is optax's, under XLA
+    "adam": ("gaussian_splatting_web_tpu_torch/csrc/adam.cu",
+             "gaussian_splatting_web_tpu/train/trainer.py make_optimizer "
+             "(optax.adam, XLA)"),
 }
 SOURCES = ("raster_fwd", "raster_bwd", "anchor_fwd", "anchor_bwd", "project",
-           "bin")
+           "bin", "adam")
+# phase 24: rows of the benchmark's two one-card scenes and of a `rubble`
+# rank; a row's leaves (xyz, log-scale, quaternion, opacity, SH DC, SH
+# rest) and their floats
+ADAM_ROWS = (2_960_000, 1_660_000, 10_100_000)
+ADAM_SHAPES = ((3,), (3,), (4,), (), (1, 3), (15, 3))
+ADAM_FLOATS = 59
 
 
 class SmokeFailure(RuntimeError):
@@ -864,7 +892,8 @@ def sharded_step_check(step, state, ref, what):
     """One sharded step on `bench_lib.unsharded_reference`'s two views
     against its loss and gradients (`bench_lib.step_parity`) → (counts,
     step ms, loss, parity); E-A 2, E-B 2, P 2 and P-bwd 2 (each view
-    projected once) and no other kernel may launch."""
+    projected once), adam 1 (one optimizer step) and no other kernel may
+    launch."""
     cams, targets = ref[0], ref[1]
     build.reset_launches()
     torch.cuda.synchronize()
@@ -879,7 +908,7 @@ def sharded_step_check(step, state, ref, what):
     check(parity["ok"], f"{what}: loss {loss} vs unsharded {ref[2]} (rel "
           f"{parity['rel']:.2e}), gradients {parity['stats']}")
     check(counts == {**{k: 0 for k in counts}, "E-A": 2, "E-B": 2, "P": 2,
-                     "P-bwd": 2, "bin": 2},
+                     "P-bwd": 2, "bin": 2, "adam": 1},
           f"{what} on two views launched {counts}")
     return counts, step_ms, loss, parity
 
@@ -1700,6 +1729,81 @@ def phase_binning(dev, label="23 binning"):
     return results[-1]
 
 
+def phase_adam(dev, label="24 adam"):
+    """csrc/adam.cu over the six leaves at ADAM_ROWS: one step against
+    `adam_plain` from the same state, one launch a `step()`; the kernel
+    alone, the whole step, the twin and torch's foreach Adam timed → the
+    `mipnerf360` result for the JSON line."""
+    results, parts = [], []
+    for n in ADAM_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        params = [torch.nn.Parameter(torch.randn((n, *s), generator=gen,
+                                                 device=dev))
+                  for s in ADAM_SHAPES]
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+        lrs = (1.6e-4, 5e-3, 1e-3, 0.05, 2.5e-3, 1.25e-4)
+        opt = adam_cuda.Adam([{"params": [p], "lr": lr}
+                              for p, lr in zip(params, lrs)], eps=1e-15)
+        opt.step()                                  # the moments exist
+        leaves = []
+        for p, lr in zip(params, lrs):
+            st = opt.state[p]
+            leaves.append(adam_cuda.Leaf(
+                p.detach().clone(), p.grad, st["exp_avg"].clone(),
+                st["exp_avg_sq"].clone(), lr / (1 - 0.9 ** 2),
+                (1 - 0.999 ** 2) ** 0.5, 0.9, 0.999, 1e-15))
+        old = [(x.p.clone(), x.m.clone(), x.v.clone()) for x in leaves]
+        adam_cuda.adam_plain(leaves)
+        build.reset_launches()
+        opt.step()
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        check(counts == {**{k: 0 for k in counts}, "adam": 1},
+              f"Adam.step() at {n} rows launched {counts}")
+        gap, err = 0.0, 0.0
+        for p, x, o in zip(params, leaves, old):
+            st = opt.state[p]
+            for a, b, prev in ((p.detach(), x.p, o[0]),
+                               (st["exp_avg"], x.m, o[1]),
+                               (st["exp_avg_sq"], x.v, o[2])):
+                check(bool(torch.isfinite(a).all()), f"adam at {n}: "
+                      "non-finite state")
+                gap = max(gap, adam_ulp_gap(a, b, prev))
+                err = max(err, float((a - b).abs().max()))
+        check(gap <= ADAM_ULPS,
+              f"adam at {n} rows: {gap:.2f} ulp off adam_plain")
+        del old
+        run = [adam_cuda.Leaf(p.detach(), p.grad, opt.state[p]["exp_avg"],
+                              opt.state[p]["exp_avg_sq"], lr, 1.0, 0.9,
+                              0.999, 1e-15) for p, lr in zip(params, lrs)]
+        ms = median_ms(lambda: adam_cuda.adam_cuda(run), 7, repeat=5)
+        step_ms = median_ms(opt.step, 7, repeat=5)
+        plain_ms = median_ms(lambda: adam_cuda.adam_plain(leaves), 7)
+        del leaves, run
+        lib = torch.optim.Adam([{"params": [p], "lr": lr}
+                                for p, lr in zip(params, lrs)], eps=1e-15,
+                               foreach=True)
+        library_ms = median_ms(lib.step, 7)
+        del lib
+        floats = n * ADAM_FLOATS
+        bound_ms = 1e3 * floats * ADAM_BYTES / HBM_BYTES_S
+        parts.append(f"{n} rows ({floats} floats): kernel {ms:.4f} ms "
+                     f"({100 * bound_ms / ms:.1f}% of the {ADAM_BYTES}-B "
+                     f"floor {bound_ms:.4f} ms), step() {step_ms:.4f} ms, "
+                     f"adam_plain {plain_ms:.3f} ms, torch foreach Adam "
+                     f"{library_ms:.3f} ms; {gap:.2f} ulp, max |diff| "
+                     f"{err:.2e} off the twin")
+        results.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes",
+                        "library_ms": library_ms})
+        del params, opt
+        torch.cuda.empty_cache()
+    print(f"[{label}] csrc/adam.cu, one launch a step() over six leaves "
+          "(CUDA events, median of 7): " + "; ".join(parts))
+    return results[0]
+
+
 def phase_step(dev, cloud, cfg, steps=7, label="5 step", kernels="AB"):
     """Forward + backward through `render`, as a training step runs it;
     `kernels`, P and P-bwd launch once per step and no other does."""
@@ -1856,7 +1960,7 @@ def phase_train(dev, cfg, iterations=30, label="8 train", kernels="AB",
     wall = time.perf_counter() - t0
     counts = build.launch_counts()
     check(counts == {k: iterations * (k in (
-        *kernels, "P", "P-bwd", *binned_by_kernels(cfg, kernels)))
+        *kernels, "P", "P-bwd", "adam", *binned_by_kernels(cfg, kernels)))
         for k in counts},
           f"train launched {counts} in {iterations} iterations")
     losses = [x[1] for x in log]
@@ -1956,6 +2060,7 @@ def main():
         _, med_a = phase_render(dev, cloud, cfg_a, ref=frame)
     p_fwd, p_bwd = phase_project(dev, cloud, cfg)
     binning = phase_binning(dev)
+    adam = phase_adam(dev)
     step_ms = phase_step(dev, cloud, cfg)
     step_a = phase_step(dev, cloud, cfg_a, label="13 anchor", kernels="CD")
     with torch.no_grad():
@@ -1983,13 +2088,13 @@ def main():
         phase_eval(capture)
     results = {"raster_fwd": fwd, "raster_bwd": bwd, "anchor_fwd": afwd,
                "anchor_bwd": abwd, **tiles, "project_fwd": p_fwd,
-               "project_bwd": p_bwd, "bin": binning}
+               "project_bwd": p_bwd, "bin": binning, "adam": adam}
     launches = {"raster_fwd": trained["A"], "raster_bwd": trained["B"],
                 "anchor_fwd": trained_a["C"], "anchor_bwd": trained_a["D"],
                 "raster_fwd_tiles": sharded["E-A"],
                 "raster_bwd_tiles": sharded["E-B"],
                 "project_fwd": trained["P"], "project_bwd": trained["P-bwd"],
-                "bin": trained["bin"]}
+                "bin": trained["bin"], "adam": trained["adam"]}
     print(f"[wall] {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,

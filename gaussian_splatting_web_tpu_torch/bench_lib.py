@@ -85,6 +85,21 @@ def binning_bytes(n: int, slots: int, kept: int, num_tiles: int) -> int:
     once (the sort's passes over the live pairs are not counted)."""
     return n * BIN_READ_BYTES + slots * 8 + kept * 4 + num_tiles * 8
 
+
+# the optimizer (csrc/adam.cu) reads p, g, m and v and writes p, m and v:
+# 28 bytes a float; kernel and twin agree within ADAM_ULPS a step
+ADAM_BYTES, ADAM_ULPS = 28, 4
+
+
+def adam_ulp_gap(got, want, old) -> float:
+    """Largest |got - want| in ulps of the larger of |old|, |want| and
+    |want - old|, the magnitudes an Adam update adds up (a value that an
+    update nearly cancels is not held to its own tiny ulp)."""
+    scale = torch.maximum(torch.maximum(want.abs(), old.abs()),
+                          (want - old).abs())
+    ulp = torch.nextafter(scale, torch.full_like(scale, math.inf)) - scale
+    return float(((got - want).abs() / ulp).max())
+
 # peaks of one H100 SXM (NVIDIA data sheet; SFU: 16 results per SM per
 # clock at the 1.98 GHz boost clock)
 HBM_BYTES_S, FP32_FLOPS_S, SFU_OPS_S = 3.35e12, 67e12, 132 * 16 * 1.98e9

@@ -129,13 +129,15 @@ KERNELS: Dict[str, Kernel] = {k.entry: k for k in (
     # binning's two passes count once, as its emit pass: one per binning
     Kernel("bin", "bin_count", "5p 11i 1f 5p", None),
     Kernel("bin", "bin_emit_sort", "4p 12i 11p", "bin"),
+    # one launch updates up to eight leaves: one per optimizer step
+    Kernel("adam", "adam", "1p 1i", "adam"),
 )}
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches since the last `reset_launches` by kernel: A, B, their
-    tile-list entries E-A, E-B, C, D, the projection's P and P-bwd, and
-    binning's calls (bin)."""
+    tile-list entries E-A, E-B, C, D, the projection's P and P-bwd,
+    binning's calls (bin) and the optimizer's (adam)."""
     return {k.name: k.launches for k in KERNELS.values() if k.name}
 
 

@@ -5,8 +5,10 @@ The optimizer is INRIA's per-group Adam (eps 1e-15): positions get a
 learning rate scaled by the scene extent that decays exponentially like
 `optax.exponential_decay` (continuous, clipped at its end value) and is
 evaluated at the count of updates taken so far, as optax evaluates it;
-SH rest bands learn at the DC rate / 20. Here the groups are
-`torch.optim.Adam` parameter groups over the GaussianModel's parameters.
+SH rest bands learn at the DC rate / 20. Here the groups are parameter
+groups of the port's Adam (`ops/cuda/adam.py`: torch's groups and state,
+one launch of `csrc/adam.cu` a step on the card) over the GaussianModel's
+parameters.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from ..config import RenderConfig
 from ..core.types import CameraParams
 from ..models.gaussian_model import GaussianModel
+from ..ops.cuda.adam import Adam
 from ..ops.rasterize import render_impl
 from ..utils import tracing
 from .loss import full_f32, photometric_loss
@@ -60,7 +63,7 @@ def make_optimizer(
         {"params": [model.sh_rest], "lr": sh_dc_lr / sh_rest_lr_div,
          "name": "sh_rest"},
     ]
-    return torch.optim.Adam(groups, eps=1e-15)
+    return Adam(groups, eps=1e-15)
 
 
 def set_learning_rates(optimizer: torch.optim.Optimizer, step: int) -> None:

@@ -376,7 +376,7 @@ def test_train_step_launches_each_kernel_once(device):
     losses = [float(step(state, camera, target)[1]) for _ in range(3)]
     torch.cuda.synchronize()
     counts = build.launch_counts()
-    assert counts["A"] == counts["B"] == 3
+    assert counts["A"] == counts["B"] == counts["adam"] == 3
     assert all(np.isfinite(losses)) and state.step == 3
 
 
@@ -662,7 +662,8 @@ def test_packed_anchor_kernels_match_plain(device, scene):
 
 def test_packed_render_and_step_launch_counts(device):
     """render and a train step under CFG_P: A once per frame, A and B once
-    per step; with the packed anchor binning C, and C and D."""
+    per step; with the packed anchor binning C, and C and D; Adam once a
+    step."""
     from gaussian_splatting_web_tpu_torch.models.gaussian_model import (
         GaussianModel,
     )
@@ -687,7 +688,7 @@ def test_packed_render_and_step_launch_counts(device):
         losses = [float(step(state, camera, target)[1]) for _ in range(2)]
         torch.cuda.synchronize()
         counts = build.launch_counts()
-        assert (counts[fwd], counts[bwd]) == (3, 2)
+        assert (counts[fwd], counts[bwd], counts["adam"]) == (3, 2, 2)
         assert all(np.isfinite(losses)) and torch.isfinite(img).all()
 
 

@@ -51,4 +51,4 @@ def test_every_launch_entry_has_one_handle():
     assert sorted(names) == sorted(build.launch_counts())
     assert len(set(names)) == len(names)
     assert set(names) == {"A", "B", "C", "D", "E-A", "E-B", "P", "P-bwd",
-                          "bin"}
+                          "bin", "adam"}
